@@ -1,0 +1,293 @@
+"""Multi-expert Gemma decoder (port of ``lap_tpu/models/gemma.py``).
+
+The token sequence is split between experts (the PaliGemma VLM and the
+action expert), each with its own weights; attention runs jointly over the
+concatenated sequence. Numerics held from the JAX module: RMSNorm variance
+in f32 with eps 1e-6 and a ``1 + scale`` weight, adaRMS (scale/shift/gate
+from a conditioning vector), RoPE then ``q *= head_dim**-0.5`` then attention
+at scale 1.0, gated residuals, the embedding scaled by ``sqrt(D)`` rounded to
+the activation dtype, and a KV cache ``(idx, k, v)`` stacked over layers.
+
+Parameters keep the JAX checkpoint shapes; per-expert modules sit in
+``nn.ModuleList``s indexed by expert, layers in ``layers``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lap_tpu_torch.models.lora import Einsum, FeedForward
+from lap_tpu_torch.ops.attention import attention
+from lap_tpu_torch.ops.rope import apply_rope
+
+PALIGEMMA_VOCAB_SIZE = 257_152
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    width: int
+    depth: int
+    mlp_dim: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+
+
+_VARIANTS = {
+    "dummy": dict(width=64, depth=4, mlp_dim=128, num_heads=8, num_kv_heads=1, head_dim=16),
+    "gemma_300m": dict(width=1024, depth=18, mlp_dim=4096, num_heads=8, num_kv_heads=1, head_dim=256),
+    "gemma_2b": dict(width=2048, depth=18, mlp_dim=16_384, num_heads=8, num_kv_heads=1, head_dim=256),
+}
+
+
+def get_config(variant: str) -> Config:
+    if variant not in _VARIANTS:
+        raise ValueError(f"Unknown gemma variant: {variant}")
+    return Config(**_VARIANTS[variant])
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm; adaptive (scale/shift/gate from ``cond``) when ``adaptive``.
+
+    Returns (normed, gate or None).
+    """
+
+    def __init__(self, width: int, *, adaptive: bool = False, device=None, dtype=None):
+        super().__init__()
+        self.adaptive = adaptive
+        if adaptive:
+            # flax Dense_0 of the modulation, as torch Linear weight [3W, W] + bias.
+            self.modulation_weight = nn.Parameter(torch.empty((3 * width, width), device=device, dtype=dtype))
+            self.modulation_bias = nn.Parameter(torch.empty(3 * width, device=device, dtype=dtype))
+        else:
+            self.scale = nn.Parameter(torch.empty(width, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor | None = None):
+        dtype = x.dtype
+        var = x.float().square().mean(dim=-1, keepdim=True)
+        normed = x * torch.rsqrt(var + 1e-6)
+        if not self.adaptive:
+            if cond is not None:
+                raise ValueError("a plain RMSNorm takes no conditioning")
+            return (normed * (1 + self.scale)).to(dtype), None
+        # The modulation Dense runs in the activation dtype (flax dtype=x.dtype).
+        modulation = F.linear(
+            cond.to(dtype), self.modulation_weight.to(dtype), self.modulation_bias.to(dtype)
+        )
+        scale, shift, gate = modulation[:, None, :].chunk(3, dim=-1)
+        return (normed * (1 + scale) + shift).to(dtype), gate
+
+    def random_init_(self, gen: torch.Generator) -> None:
+        if self.adaptive:
+            # Small enough that 18 modulated layers keep the stream in range.
+            fan_in = self.modulation_weight.shape[1]
+            self.modulation_weight.normal_(0.0, 0.3 * fan_in**-0.5, generator=gen)
+            self.modulation_bias.normal_(0.0, 0.02, generator=gen)
+        else:
+            self.scale.normal_(0.0, 0.1, generator=gen)
+
+
+class Embedder(nn.Module):
+    def __init__(self, vocab_size: int, embed_dim: int, *, device=None, dtype=None):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.input_embedding = nn.Parameter(
+            torch.empty((vocab_size, embed_dim), device=device, dtype=dtype)
+        )
+
+    def encode(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.input_embedding[tokens]
+        scale = torch.tensor(float(self.embed_dim), dtype=torch.float32).sqrt().to(x.dtype)
+        return x * scale.to(x.device)
+
+    def random_init_(self, gen: torch.Generator) -> None:
+        self.input_embedding.normal_(0.0, 0.01, generator=gen)  # flax normal() default
+
+
+def init_cache(k, v, cache_size: int, cache_dtype=None):
+    """Pad fresh K/V to ``cache_size``; idx marks the filled prefix length."""
+    prefill = k.shape[1]
+    dtype = cache_dtype or k.dtype
+    pad = (0, 0, 0, 0, 0, cache_size - prefill)
+    idx = torch.full((k.shape[0],), prefill, dtype=torch.int32, device=k.device)
+    return idx, F.pad(k.to(dtype), pad), F.pad(v.to(dtype), pad)
+
+
+def _expert_list(make, n: int) -> nn.ModuleList:
+    return nn.ModuleList([make(i) for i in range(n)])
+
+
+class Attention(nn.Module):
+    """Joint attention over the concatenated expert sequences."""
+
+    def __init__(self, configs: Sequence[Config], *, cache_dtype=None, attn_impl="auto",
+                 device=None, dtype=None):
+        super().__init__()
+        cfg0 = configs[0]
+        if not all(
+            (c.head_dim, c.num_heads, c.num_kv_heads) == (cfg0.head_dim, cfg0.num_heads, cfg0.num_kv_heads)
+            for c in configs
+        ):
+            raise ValueError("experts must share head geometry")
+        self.configs = tuple(configs)
+        self.cache_dtype = cache_dtype
+        self.attn_impl = attn_impl
+        kw = dict(device=device, dtype=dtype)
+        n, k, h = cfg0.num_heads, cfg0.num_kv_heads, cfg0.head_dim
+        self.fused_qkv = k == n
+        if self.fused_qkv:
+            self.qkv_einsum = _expert_list(lambda i: Einsum((3, n, configs[i].width, h), configs[i].width, **kw), len(configs))
+        else:
+            self.q_einsum = _expert_list(lambda i: Einsum((n, configs[i].width, h), configs[i].width, **kw), len(configs))
+            self.kv_einsum = _expert_list(lambda i: Einsum((2, k, configs[i].width, h), configs[i].width, **kw), len(configs))
+        self.attn_vec_einsum = _expert_list(lambda i: Einsum((n, h, configs[i].width), n * h, **kw), len(configs))
+
+    def forward(self, xs, positions, attn_mask, kv_cache):
+        qs, ks, vs = [], [], []
+        for i, x in enumerate(xs):
+            if x is None:
+                continue
+            if self.fused_qkv:
+                q, k, v = self.qkv_einsum[i]("bsd,cndh->cbsnh", x).unbind(0)
+            else:
+                q = self.q_einsum[i]("btd,ndh->btnh", x)
+                k, v = self.kv_einsum[i]("bsd,cndh->cbsnh", x).unbind(0)
+            qs.append(q)
+            ks.append(k)
+            vs.append(v)
+        q = torch.cat(qs, dim=1)
+        k = torch.cat(ks, dim=1)
+        v = torch.cat(vs, dim=1)
+
+        q = apply_rope(q, positions)
+        q = q * self.configs[0].head_dim ** -0.5
+        k = apply_rope(k, positions)
+
+        if kv_cache is not None:
+            if xs[0] is not None:
+                raise NotImplementedError("single-token AR decode is not ported yet")
+            # Suffix step (flow-matching action expert): the fresh suffix K/V
+            # follow the cached prefix.
+            idx, cache_k, cache_v = kv_cache
+            idx = idx + k.shape[1]
+            k = torch.cat([cache_k, k.to(cache_k.dtype)], dim=1)
+            v = torch.cat([cache_v, v.to(cache_v.dtype)], dim=1)
+        else:
+            idx, k, v = init_cache(k, v, attn_mask.shape[-1], self.cache_dtype)
+
+        encoded = attention(q, k, v, attn_mask, scale=1.0, impl=self.attn_impl)
+
+        out, start = [], 0
+        for i, x in enumerate(xs):
+            if x is None:
+                out.append(None)
+                continue
+            end = start + x.shape[1]
+            out.append(self.attn_vec_einsum[i]("btnh,nhd->btd", encoded[:, start:end]))
+            start = end
+        return out, (idx, k, v)
+
+
+def _gated_residual(x, y, gate):
+    if x is None:
+        return None
+    return x + y if gate is None else x + y * gate
+
+
+class Block(nn.Module):
+    def __init__(self, configs: Sequence[Config], use_adarms: Sequence[bool], *, cache_dtype=None,
+                 attn_impl="auto", device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        n = len(configs)
+        self.pre_attention_norm = _expert_list(lambda i: RMSNorm(configs[i].width, adaptive=use_adarms[i], **kw), n)
+        self.attn = Attention(configs, cache_dtype=cache_dtype, attn_impl=attn_impl, **kw)
+        self.pre_ffw_norm = _expert_list(lambda i: RMSNorm(configs[i].width, adaptive=use_adarms[i], **kw), n)
+        self.mlp = _expert_list(lambda i: FeedForward(configs[i].width, configs[i].mlp_dim, **kw), n)
+
+    def forward(self, xs, kv_cache, positions, attn_mask, adarms_cond):
+        pre, gates = [], []
+        for i, x in enumerate(xs):
+            gate = None
+            if x is not None:
+                x, gate = self.pre_attention_norm[i](x, adarms_cond[i])
+            pre.append(x)
+            gates.append(gate)
+        post, kv_cache = self.attn(pre, positions, attn_mask, kv_cache)
+        xs = [_gated_residual(x, y, g) for x, y, g in zip(xs, post, gates, strict=True)]
+
+        outs, gates = [], []
+        for i, x in enumerate(xs):
+            gate = None
+            if x is not None:
+                x, gate = self.pre_ffw_norm[i](x, adarms_cond[i])
+                x = self.mlp[i](x)
+            outs.append(x)
+            gates.append(gate)
+        xs = [_gated_residual(x, y, g) for x, y, g in zip(xs, outs, gates, strict=True)]
+        return xs, kv_cache
+
+
+class Module(nn.Module):
+    """The multi-expert transformer: ``depth`` blocks, then per-expert final norms."""
+
+    def __init__(self, configs: Sequence[Config], *, use_adarms: Sequence[bool] | None = None,
+                 embed_dtype: torch.dtype = torch.bfloat16, cache_dtype=None, attn_impl: str = "auto",
+                 vocab_size: int = PALIGEMMA_VOCAB_SIZE, device=None, dtype=None):
+        super().__init__()
+        if not all(c.depth == configs[0].depth for c in configs):
+            raise ValueError("experts must share depth")
+        self.configs = tuple(configs)
+        self.embed_dtype = embed_dtype
+        use_adarms = tuple(use_adarms or [False] * len(configs))
+        kw = dict(device=device, dtype=dtype)
+        self.embedder = Embedder(vocab_size, configs[0].width, **kw)
+        self.layers = nn.ModuleList(
+            [
+                Block(configs, use_adarms, cache_dtype=cache_dtype, attn_impl=attn_impl, **kw)
+                for _ in range(configs[0].depth)
+            ]
+        )
+        self.final_norm = _expert_list(
+            lambda i: RMSNorm(configs[i].width, adaptive=use_adarms[i], **kw), len(configs)
+        )
+
+    def set_attn_impl(self, impl: str) -> None:
+        for block in self.layers:
+            block.attn.attn_impl = impl
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embedder.encode(tokens).to(self.embed_dtype)
+
+    def forward(self, embedded, positions, mask, adarms_cond=None, *, kv_cache=None):
+        """Run the stack.
+
+        Args:
+            embedded: per-expert [B, T_i, D_i] embeddings (None = skip expert).
+            positions: [B, T_total] token positions.
+            mask: [B, T_total, S] boolean attention mask.
+            adarms_cond: per-expert [B, D_i] adaRMS conditioning, or None.
+            kv_cache: stacked (idx [L, B], k [L, B, S, K, H], v) or None.
+
+        Returns:
+            (per-expert final-normed outputs, stacked kv_cache)
+        """
+        embedded = [None if e is None else e.to(self.embed_dtype) for e in embedded]
+        if adarms_cond is None:
+            adarms_cond = [None] * len(self.configs)
+        caches = []
+        for i, block in enumerate(self.layers):
+            layer_in = None if kv_cache is None else tuple(c[i] for c in kv_cache)
+            embedded, layer_out = block(embedded, layer_in, positions, mask, adarms_cond)
+            caches.append(layer_out)
+        kv_cache = tuple(torch.stack(parts) for parts in zip(*caches))
+        out = [
+            None if e is None else norm(e, a)[0]
+            for norm, e, a in zip(self.final_norm, embedded, adarms_cond, strict=True)
+        ]
+        return out, kv_cache

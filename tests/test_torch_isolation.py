@@ -1,0 +1,64 @@
+"""The port stands alone: no JAX, nothing of lap_tpu, and no silent CPU
+fallback."""
+
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "lap_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+JAX_LIBS = ("jax", "jaxlib", "flax", "optax", "orbax")
+
+
+def test_port_imports_with_jax_blocked():
+    blocked = "; ".join(f"sys.modules[{name!r}] = None" for name in JAX_LIBS)
+    code = (
+        "import sys, pkgutil, importlib; " + blocked + "; "
+        "import lap_tpu_torch; "
+        "mods = [m.name for m in pkgutil.walk_packages(lap_tpu_torch.__path__, 'lap_tpu_torch.')]; "
+        "[importlib.import_module(m) for m in mods]; "
+        "assert not any(n == 'lap_tpu' or n.startswith('lap_tpu.') for n in sys.modules), 'lap_tpu imported'; "
+        "print(len(mods))"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 10
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_lap_tpu_import_in_source(path):
+    text = path.read_text()
+    assert not re.search(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|orbax)\b", text, re.M)
+    assert not re.search(r"lap_tpu\.|import lap_tpu\b", text)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from lap_tpu_torch import resolve_device
+    from lap_tpu_torch.models.lap_model import LAP, LAPConfig
+    from torch_port_helpers import tiny_lap_config_kwargs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LAP(LAPConfig(**tiny_lap_config_kwargs()))
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for hosts without one")
+    for cwd, script in ((REPO, REPO / "chip_smoke.py"), (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            shutil.copy(REPO / "chip_smoke.py", script)
+        proc = subprocess.run(
+            [sys.executable, str(script)], cwd=cwd, capture_output=True, text=True, timeout=300
+        )
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
