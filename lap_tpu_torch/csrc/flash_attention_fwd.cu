@@ -35,81 +35,12 @@
 //   stores.
 // Head dims 128 and 256 are compiled; the wrapper raises on any other.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_attention_common.cuh"
 
 namespace {
 
 constexpr int BLOCK_M = 64;
 constexpr int BLOCK_N = 64;
-constexpr int NUM_WARPS = 4;
-constexpr int NUM_THREADS = NUM_WARPS * 32;
-constexpr float MASK_VALUE = -2.3819763e38f;
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes == 0 writes zeros (rows past the end).
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c += a . b for one 16x8x16 tile (a row-major 16x16, b col-major 16x8).
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Offset, in 16-byte chunks, of (row, chunk) in a swizzled tile of H columns.
-template <int H>
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * (H / 8) + (chunk ^ (row & 7));
-}
-
-// Async copy of rows [row0, row0 + BLOCK) of a [rows, H] bf16 matrix with
-// row stride `stride` (elements) into a swizzled shared tile.
-template <int H, int ROWS>
-__device__ __forceinline__ void load_tile(uint4* tile, const __nv_bfloat16* base, int64_t stride,
-                                          int row0, int rows) {
-  constexpr int CHUNKS = H / 8;
-  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += NUM_THREADS) {
-    const int r = idx / CHUNKS;
-    const int c = idx % CHUNKS;
-    const bool valid = row0 + r < rows;
-    const __nv_bfloat16* src = valid ? base + (row0 + r) * stride + c * 8 : base;
-    cp_async_16(smem_addr(tile + swz<H>(r, c)), src, valid ? 16 : 0);
-  }
-}
 
 struct Params {
   const __nv_bfloat16* q;
@@ -244,10 +175,7 @@ __global__ void __launch_bounds__(NUM_THREADS) flash_fwd_kernel(const Params p) 
 #pragma unroll
       for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
         uint32_t a[4];
-        a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        c_to_a(a, s, kk);
 #pragma unroll
         for (int hp = 0; hp < H / 16; ++hp) {
           uint32_t bv[4];

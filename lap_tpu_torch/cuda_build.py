@@ -3,8 +3,8 @@
 Each source under ``lap_tpu_torch/csrc/`` is compiled on first use into a
 shared library with a plain C interface (no PyTorch headers, so a build takes
 seconds), for ``sm_90a``. Libraries go to ``lap_tpu_torch/_build/``, named by
-a hash of the source, so an edited source is rebuilt and an unchanged one is
-reused within a checkout.
+a hash of the source and of the shared headers (``csrc/*.cuh``), so an edited
+source is rebuilt and an unchanged one is reused within a checkout.
 """
 
 from __future__ import annotations
@@ -52,7 +52,8 @@ def find_nvcc() -> str:
 def build(source: str) -> Path:
     """Compile ``csrc/<source>`` unless its library is already built."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    content = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(content + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{src.stem}-{digest}.so"
     if lib.exists():
         return lib

@@ -14,6 +14,10 @@ numpy arrays. Its traps, each handled here:
 
 ``from_jax_params`` fails on any leaf it does not consume;
 ``load_jax_params`` also fails on any port parameter it does not fill.
+
+The same translation carries any tree laid out like the params: a gradient
+tree, Adam moments, an EMA copy. ``None`` leaves (the frozen gaps of a
+partitioned trainable tree) are passed over; nothing else is dropped.
 """
 
 from __future__ import annotations
@@ -148,6 +152,8 @@ def from_jax_params(tree: dict) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
     unused = []
     for key, value in flatten(tree).items():
+        if value is None:
+            continue
         try:
             pairs = _translate(key, np.asarray(value))
         except (KeyError, IndexError):

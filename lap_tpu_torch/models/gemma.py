@@ -8,6 +8,13 @@ from a conditioning vector), RoPE then ``q *= head_dim**-0.5`` then attention
 at scale 1.0, gated residuals, the embedding scaled by ``sqrt(D)`` rounded to
 the activation dtype, and a KV cache ``(idx, k, v)`` stacked over layers.
 
+Training: ``stop_action_to_vlm_grad`` splits each layer's attention into two
+calls at the expert-0 boundary, the second with detached expert-0 keys and
+values (forward values unchanged); ``remat_policy="nothing_saveable"``
+recomputes each block in the backward pass (``torch.utils.checkpoint``),
+``"none"`` keeps its activations. Parameters may be float32 under bf16
+activations: every layer casts its weights at use. Dropout is not ported.
+
 Parameters keep the JAX checkpoint shapes; per-expert modules sit in
 ``nn.ModuleList``s indexed by expert, layers in ``layers``.
 """
@@ -20,12 +27,14 @@ from collections.abc import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lap_tpu_torch.models.lora import Einsum, FeedForward
 from lap_tpu_torch.ops.attention import attention
 from lap_tpu_torch.ops.rope import apply_rope
 
 PALIGEMMA_VOCAB_SIZE = 257_152
+REMAT_POLICIES = ("nothing_saveable", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +101,13 @@ class RMSNorm(nn.Module):
             self.scale.normal_(0.0, 0.1, generator=gen)
 
 
+def tied_table_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Tied-head vocab logits ``x @ table.T`` in the dtype of ``x``: the one
+    definition of the training decode head (``Embedder.decode`` and the
+    chunked language CE both route here)."""
+    return x @ table.to(x.dtype).T
+
+
 class Embedder(nn.Module):
     def __init__(self, vocab_size: int, embed_dim: int, *, device=None, dtype=None):
         super().__init__()
@@ -104,6 +120,9 @@ class Embedder(nn.Module):
         x = self.input_embedding[tokens]
         scale = torch.tensor(float(self.embed_dim), dtype=torch.float32).sqrt().to(x.dtype)
         return x * scale.to(x.device)
+
+    def decode(self, x: torch.Tensor) -> torch.Tensor:
+        return tied_table_logits(x, self.input_embedding)
 
     def random_init_(self, gen: torch.Generator) -> None:
         self.input_embedding.normal_(0.0, 0.01, generator=gen)  # flax normal() default
@@ -125,8 +144,8 @@ def _expert_list(make, n: int) -> nn.ModuleList:
 class Attention(nn.Module):
     """Joint attention over the concatenated expert sequences."""
 
-    def __init__(self, configs: Sequence[Config], *, cache_dtype=None, attn_impl="auto",
-                 device=None, dtype=None):
+    def __init__(self, configs: Sequence[Config], *, stop_action_to_vlm_grad: bool = False,
+                 cache_dtype=None, attn_impl="auto", device=None, dtype=None):
         super().__init__()
         cfg0 = configs[0]
         if not all(
@@ -135,6 +154,7 @@ class Attention(nn.Module):
         ):
             raise ValueError("experts must share head geometry")
         self.configs = tuple(configs)
+        self.stop_action_to_vlm_grad = stop_action_to_vlm_grad
         self.cache_dtype = cache_dtype
         self.attn_impl = attn_impl
         kw = dict(device=device, dtype=dtype)
@@ -147,7 +167,12 @@ class Attention(nn.Module):
             self.kv_einsum = _expert_list(lambda i: Einsum((2, k, configs[i].width, h), configs[i].width, **kw), len(configs))
         self.attn_vec_einsum = _expert_list(lambda i: Einsum((n, h, configs[i].width), n * h, **kw), len(configs))
 
-    def forward(self, xs, positions, attn_mask, kv_cache):
+    def forward(self, xs, positions, attn_mask, kv_cache, want_cache: bool = True):
+        """Three call shapes: a fresh joint pass over the live experts
+        (``kv_cache is None``: the training step with both experts, or the
+        serving prefill with expert 0 alone), the cached suffix step
+        (``kv_cache`` given, expert 0 absent), and single-token AR decode
+        (``kv_cache`` given, expert 0 present; not ported)."""
         qs, ks, vs = [], [], []
         for i, x in enumerate(xs):
             if x is None:
@@ -177,10 +202,31 @@ class Attention(nn.Module):
             idx = idx + k.shape[1]
             k = torch.cat([cache_k, k.to(cache_k.dtype)], dim=1)
             v = torch.cat([cache_v, v.to(cache_v.dtype)], dim=1)
-        else:
+        elif want_cache:
             idx, k, v = init_cache(k, v, attn_mask.shape[-1], self.cache_dtype)
+        else:
+            # Training: nobody reads a cache, so none is padded or stacked.
+            if attn_mask.shape[-1] != k.shape[1]:
+                raise ValueError("without a cache the mask must cover exactly the fresh keys")
+            idx = None
+            k, v = k.to(self.cache_dtype or k.dtype), v.to(self.cache_dtype or v.dtype)
 
-        encoded = attention(q, k, v, attn_mask, scale=1.0, impl=self.attn_impl)
+        joint = xs[0] is not None and any(x is not None for x in xs[1:])
+        if self.stop_action_to_vlm_grad and kv_cache is None and joint:
+            # The joint training pass: queries of experts != 0 must not
+            # backpropagate into expert-0 keys and values. Split the query
+            # rows at the expert-0 boundary; the second call sees detached
+            # expert-0 K/V. Forward values are those of one joint call. A
+            # serving prefill (expert 0 alone) has no second group of rows
+            # and takes the single call below.
+            l0 = xs[0].shape[1]
+            k_sg = torch.cat([k[:, :l0].detach(), k[:, l0:]], dim=1)
+            v_sg = torch.cat([v[:, :l0].detach(), v[:, l0:]], dim=1)
+            out0 = attention(q[:, :l0], k, v, attn_mask[:, :l0], scale=1.0, impl=self.attn_impl)
+            out1 = attention(q[:, l0:], k_sg, v_sg, attn_mask[:, l0:], scale=1.0, impl=self.attn_impl)
+            encoded = torch.cat([out0, out1], dim=1)
+        else:
+            encoded = attention(q, k, v, attn_mask, scale=1.0, impl=self.attn_impl)
 
         out, start = [], 0
         for i, x in enumerate(xs):
@@ -190,7 +236,7 @@ class Attention(nn.Module):
             end = start + x.shape[1]
             out.append(self.attn_vec_einsum[i]("btnh,nhd->btd", encoded[:, start:end]))
             start = end
-        return out, (idx, k, v)
+        return out, ((idx, k, v) if want_cache else None)
 
 
 def _gated_residual(x, y, gate):
@@ -200,17 +246,19 @@ def _gated_residual(x, y, gate):
 
 
 class Block(nn.Module):
-    def __init__(self, configs: Sequence[Config], use_adarms: Sequence[bool], *, cache_dtype=None,
-                 attn_impl="auto", device=None, dtype=None):
+    def __init__(self, configs: Sequence[Config], use_adarms: Sequence[bool], *,
+                 stop_action_to_vlm_grad: bool = False, cache_dtype=None, attn_impl="auto",
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         n = len(configs)
         self.pre_attention_norm = _expert_list(lambda i: RMSNorm(configs[i].width, adaptive=use_adarms[i], **kw), n)
-        self.attn = Attention(configs, cache_dtype=cache_dtype, attn_impl=attn_impl, **kw)
+        self.attn = Attention(configs, stop_action_to_vlm_grad=stop_action_to_vlm_grad,
+                              cache_dtype=cache_dtype, attn_impl=attn_impl, **kw)
         self.pre_ffw_norm = _expert_list(lambda i: RMSNorm(configs[i].width, adaptive=use_adarms[i], **kw), n)
         self.mlp = _expert_list(lambda i: FeedForward(configs[i].width, configs[i].mlp_dim, **kw), n)
 
-    def forward(self, xs, kv_cache, positions, attn_mask, adarms_cond):
+    def forward(self, xs, kv_cache, positions, attn_mask, adarms_cond, want_cache: bool = True):
         pre, gates = [], []
         for i, x in enumerate(xs):
             gate = None
@@ -218,7 +266,7 @@ class Block(nn.Module):
                 x, gate = self.pre_attention_norm[i](x, adarms_cond[i])
             pre.append(x)
             gates.append(gate)
-        post, kv_cache = self.attn(pre, positions, attn_mask, kv_cache)
+        post, kv_cache = self.attn(pre, positions, attn_mask, kv_cache, want_cache)
         xs = [_gated_residual(x, y, g) for x, y, g in zip(xs, post, gates, strict=True)]
 
         outs, gates = [], []
@@ -238,18 +286,23 @@ class Module(nn.Module):
 
     def __init__(self, configs: Sequence[Config], *, use_adarms: Sequence[bool] | None = None,
                  embed_dtype: torch.dtype = torch.bfloat16, cache_dtype=None, attn_impl: str = "auto",
+                 stop_action_to_vlm_grad: bool = False, remat_policy: str = "nothing_saveable",
                  vocab_size: int = PALIGEMMA_VOCAB_SIZE, device=None, dtype=None):
         super().__init__()
         if not all(c.depth == configs[0].depth for c in configs):
             raise ValueError("experts must share depth")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got {remat_policy!r}")
         self.configs = tuple(configs)
         self.embed_dtype = embed_dtype
+        self.remat_policy = remat_policy
         use_adarms = tuple(use_adarms or [False] * len(configs))
         kw = dict(device=device, dtype=dtype)
         self.embedder = Embedder(vocab_size, configs[0].width, **kw)
         self.layers = nn.ModuleList(
             [
-                Block(configs, use_adarms, cache_dtype=cache_dtype, attn_impl=attn_impl, **kw)
+                Block(configs, use_adarms, stop_action_to_vlm_grad=stop_action_to_vlm_grad,
+                      cache_dtype=cache_dtype, attn_impl=attn_impl, **kw)
                 for _ in range(configs[0].depth)
             ]
         )
@@ -264,7 +317,11 @@ class Module(nn.Module):
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embedder.encode(tokens).to(self.embed_dtype)
 
-    def forward(self, embedded, positions, mask, adarms_cond=None, *, kv_cache=None):
+    def decode_logits(self, prelogits: torch.Tensor) -> torch.Tensor:
+        return self.embedder.decode(prelogits)
+
+    def forward(self, embedded, positions, mask, adarms_cond=None, *, kv_cache=None,
+                want_cache: bool = True):
         """Run the stack.
 
         Args:
@@ -273,19 +330,26 @@ class Module(nn.Module):
             mask: [B, T_total, S] boolean attention mask.
             adarms_cond: per-expert [B, D_i] adaRMS conditioning, or None.
             kv_cache: stacked (idx [L, B], k [L, B, S, K, H], v) or None.
+            want_cache: False in training: no cache is built or stacked.
 
         Returns:
-            (per-expert final-normed outputs, stacked kv_cache)
+            (per-expert final-normed outputs, stacked kv_cache or None)
         """
         embedded = [None if e is None else e.to(self.embed_dtype) for e in embedded]
         if adarms_cond is None:
             adarms_cond = [None] * len(self.configs)
+        remat = self.remat_policy != "none" and torch.is_grad_enabled()
         caches = []
         for i, block in enumerate(self.layers):
             layer_in = None if kv_cache is None else tuple(c[i] for c in kv_cache)
-            embedded, layer_out = block(embedded, layer_in, positions, mask, adarms_cond)
+            args = (embedded, layer_in, positions, mask, adarms_cond, want_cache)
+            if remat:
+                # No dropout, so there is no RNG state to replay.
+                embedded, layer_out = checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
+            else:
+                embedded, layer_out = block(*args)
             caches.append(layer_out)
-        kv_cache = tuple(torch.stack(parts) for parts in zip(*caches))
+        kv_cache = tuple(torch.stack(parts) for parts in zip(*caches)) if want_cache else None
         out = [
             None if e is None else norm(e, a)[0]
             for norm, e, a in zip(self.final_norm, embedded, adarms_cond, strict=True)

@@ -5,6 +5,11 @@ bidirectional attention, the encoder LayerNorm, and the ``head`` Dense to the
 LLM width. Flax ``LayerNorm`` uses eps 1e-6 (PyTorch's default is 1e-5) and
 flax ``gelu`` the tanh approximation. Images come in as [B, H, W, 3] in
 [-1, 1], as in JAX.
+
+Activations run in ``compute_dtype`` (the parameters' dtype unless given);
+every layer casts its weights at use, so float32 parameters can sit under
+bf16 activations as in JAX training. With gradients enabled each encoder block
+is recomputed in the backward pass, matching the remat-scanned JAX encoder.
 """
 
 from __future__ import annotations
@@ -14,10 +19,23 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lap_tpu_torch.ops.attention import attention
 
 LAYER_NORM_EPS = 1e-6
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)`` with the weights cast to the dtype of ``x``."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+def _layer_norm(layer: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    return F.layer_norm(
+        x, layer.normalized_shape, layer.weight.to(x.dtype), layer.bias.to(x.dtype), layer.eps
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,12 +77,12 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, d = x.shape
         h = d // self.num_heads
-        q = self.query(x).view(b, t, self.num_heads, h)
-        k = self.key(x).view(b, t, self.num_heads, h)
-        v = self.value(x).view(b, t, self.num_heads, h)
+        q = _linear(self.query, x).view(b, t, self.num_heads, h)
+        k = _linear(self.key, x).view(b, t, self.num_heads, h)
+        v = _linear(self.value, x).view(b, t, self.num_heads, h)
         mask = torch.ones((b, t, t), dtype=torch.bool, device=x.device)
         out = attention(q, k, v, mask, scale=h**-0.5, impl=self.attn_impl)
-        return self.out(out.reshape(b, t, d))
+        return _linear(self.out, out.reshape(b, t, d))
 
 
 class EncoderBlock(nn.Module):
@@ -79,8 +97,8 @@ class EncoderBlock(nn.Module):
         self.mlp1 = nn.Linear(mlp_dim, width, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln0(x))
-        y = self.mlp1(F.gelu(self.mlp0(self.ln1(x)), approximate="tanh"))
+        x = x + self.attn(_layer_norm(self.ln0, x))
+        y = _linear(self.mlp1, F.gelu(_linear(self.mlp0, _layer_norm(self.ln1, x)), approximate="tanh"))
         return x + y
 
 
@@ -88,9 +106,12 @@ class SigLIP(nn.Module):
     """ViT image encoder emitting a token sequence (no pooling)."""
 
     def __init__(self, config: SiglipConfig, *, image_size: tuple[int, int] = (224, 224),
-                 attn_impl="auto", device=None, dtype=None):
+                 attn_impl="auto", compute_dtype: torch.dtype | None = None, remat: bool = True,
+                 device=None, dtype=None):
         super().__init__()
         self.config = config
+        self.compute_dtype = compute_dtype
+        self.remat = remat
         kw = dict(device=device, dtype=dtype)
         p = config.patch_size
         n_patches = (image_size[0] // p) * (image_size[1] // p)
@@ -113,15 +134,21 @@ class SigLIP(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """images: [B, H, W, 3] in [-1, 1]. Returns [B, tokens, width_out]."""
-        x = images.to(self.embedding.weight.dtype).permute(0, 3, 1, 2)
-        x = self.embedding(x)  # [B, D, gh, gw]
+        dtype = self.compute_dtype or self.embedding.weight.dtype
+        x = images.to(dtype).permute(0, 3, 1, 2)
+        conv = self.embedding
+        x = F.conv2d(x, conv.weight.to(dtype), conv.bias.to(dtype), stride=conv.stride)  # [B, D, gh, gw]
         x = x.flatten(2).transpose(1, 2)  # [B, gh*gw, D], row-major over the grid
         x = x + self.pos_embedding.to(x.dtype)
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
-        x = self.encoder_norm(x)
+            if remat:
+                x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = block(x)
+        x = _layer_norm(self.encoder_norm, x)
         if self.head is not None:
-            x = self.head(x)
+            x = _linear(self.head, x)
         return x
 
     def random_init_(self, gen: torch.Generator) -> None:

@@ -2,8 +2,9 @@
 
 - ``xla``: plain einsum attention, float32 logits and softmax, mask constant
   -2.3819763e38, probabilities cast to the K/V dtype before the PV product.
-- ``flash``: the hand-written CUDA flash-attention forward
-  (``flash_attention.py``); its plain PyTorch version on CPU tensors.
+- ``flash``: the hand-written CUDA flash-attention kernels, forward and
+  backward (``flash_attention.py``); their plain PyTorch versions on CPU
+  tensors.
 
 ``auto`` takes the kernel for CUDA tensors with at least 192 queries and a
 head dim that is a multiple of 128 (the JAX rule, with "CUDA tensor" where

@@ -1,18 +1,25 @@
-"""Flash-attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention: hand-written CUDA kernels and their plain versions.
 
-Replaces the Pallas TPU kernel ``lap_tpu/ops/flash_attention.py:_fwd_kernel``
-(launched from ``_flash_forward``, public ``flash_attention``). Source:
-``lap_tpu_torch/csrc/flash_attention_fwd.cu``; see its header for the design.
+Replaces the Pallas TPU kernels of ``lap_tpu/ops/flash_attention.py``:
+``_fwd_kernel`` (launched from ``_flash_forward``) by
+``lap_tpu_torch/csrc/flash_attention_fwd.cu`` and ``_bwd_dq_kernel`` /
+``_bwd_dkv_kernel`` (launched from ``_flash_backward``) by
+``lap_tpu_torch/csrc/flash_attention_bwd.cu``; see the headers of the sources
+for the designs. The public ``flash_attention`` is a
+``torch.autograd.Function``, as the JAX one is a ``custom_vjp``.
 
-Semantics held from the Pallas kernel: logits in float32, scaled, masked to
+Semantics held from the Pallas kernels: logits in float32, scaled, masked to
 -2.3819763e38; online softmax in float32; GQA through kv head ``n // (N/K)``
 without repeating K/V; a fully masked query row gives zeros and
-``lse = -2.3819763e38`` (the kernel's mask constant). The CUDA kernel rounds
-P to bf16 for its tensor-core PV product, where the Pallas kernel keeps P in
-float32; ``flash_attention_plain`` keeps P in float32 like the Pallas kernel.
+``lse = -2.3819763e38`` (the kernel's mask constant) forward and a zero dQ
+backward; the backward recomputes ``P = exp(S - lse)`` from the saved lse and
+takes ``delta = sum_h dO * O`` in float32 outside the kernels. The CUDA kernels
+round P (and dS) to bf16 for their tensor-core products, where the Pallas
+kernels keep them in float32; the plain versions keep them in float32 like the
+Pallas kernels.
 
-The wrapper takes the plain version only for CPU tensors. On a CUDA tensor it
-launches the kernel or raises.
+The wrappers take the plain versions only for CPU tensors. On a CUDA tensor
+they launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -24,16 +31,19 @@ import torch
 MASK_VALUE = -2.3819763e38
 SUPPORTED_HEAD_DIMS = (128, 256)
 SOURCE = "flash_attention_fwd.cu"
+BWD_SOURCE = "flash_attention_bwd.cu"
 
-# Launches of the CUDA kernel since the last reset (``launches = 0``).
+# Launches of each CUDA kernel since the last reset (``launches = 0``).
 launches = 0
+launches_bwd_dq = 0
+launches_bwd_dkv = 0
 
 _I64 = ctypes.c_longlong
-_SIGNATURE = {
-    "flash_attention_fwd": [ctypes.c_void_p] * 6
-    + [ctypes.c_int] * 6
-    + [_I64] * 11
-    + [ctypes.c_float, ctypes.c_void_p]
+_SHAPE_STRIDES_SCALE_STREAM = [ctypes.c_int] * 6 + [_I64] * 11 + [ctypes.c_float, ctypes.c_void_p]
+_SIGNATURE = {"flash_attention_fwd": [ctypes.c_void_p] * 6 + _SHAPE_STRIDES_SCALE_STREAM}
+_BWD_SIGNATURE = {
+    "flash_attention_bwd_dq": [ctypes.c_void_p] * 8 + _SHAPE_STRIDES_SCALE_STREAM,
+    "flash_attention_bwd_dkv": [ctypes.c_void_p] * 9 + _SHAPE_STRIDES_SCALE_STREAM,
 }
 
 
@@ -62,6 +72,35 @@ def flash_attention_plain(q, k, v, mask, *, scale: float | None = None):
     return out.reshape(b, t, n, h).to(q.dtype), lse.reshape(b, n, t)
 
 
+def flash_attention_backward_plain(q, k, v, mask, out, lse, dout, scale: float | None = None):
+    """Plain PyTorch backward, the formulas of the Pallas kernels in float32.
+
+    P is recomputed from the saved ``lse`` (not by a second softmax), zero
+    where masked and on rows whose ``lse`` says "no keys". Returns
+    (dq, dk, dv) in the dtypes of q, k and v.
+    """
+    b, t, n, h = q.shape
+    kh = k.shape[2]
+    if scale is None:
+        scale = h**-0.5
+    g = n // kh
+    qf = q.float().reshape(b, t, kh, g, h)
+    kf, vf = k.float(), v.float()
+    dof = dout.float().reshape(b, t, kh, g, h)
+    delta = (dof * out.float().reshape(b, t, kh, g, h)).sum(dim=-1)  # [B,T,K,G]
+    delta = delta.permute(0, 2, 3, 1)[..., None]  # [B,K,G,T,1]
+    lse = lse.reshape(b, kh, g, t)[..., None]
+    live = mask[:, None, None, :, :] & (lse > MASK_VALUE / 2)
+    s = torch.einsum("btkgh,bskh->bkgts", qf, kf) * scale
+    p = torch.where(live, torch.exp(s - torch.where(lse > MASK_VALUE / 2, lse, 0.0)), 0.0)
+    dv = torch.einsum("bkgts,btkgh->bskh", p, dof)
+    dp = torch.einsum("btkgh,bskh->bkgts", dof, vf)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgts,bskh->btkgh", ds, kf) * scale
+    dk = torch.einsum("bkgts,btkgh->bskh", ds, qf) * scale
+    return dq.reshape(b, t, n, h).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check_operand(name, x, rank=4):
     if x.dim() != rank:
         raise ValueError(f"{name} must have rank {rank}, got shape {tuple(x.shape)}")
@@ -72,8 +111,7 @@ def _check_operand(name, x, rank=4):
         )
 
 
-def _launch(q, k, v, mask, scale):
-    global launches
+def _check_call(q, k, v, mask):
     b, t, n, h = q.shape
     _, s, kh, _ = k.shape
     if h not in SUPPORTED_HEAD_DIMS:
@@ -88,21 +126,35 @@ def _launch(q, k, v, mask, scale):
         _check_operand(name, x)
     if mask.dtype != torch.bool or mask.stride(-1) != 1:
         raise ValueError("mask must be bool with a unit stride on its last axis")
+    if t == 0 or s == 0:
+        raise ValueError("flash kernel needs at least one query and one key")
+
+
+def _shape_strides_scale_stream(q, k, v, mask, scale):
+    b, t, n, h = q.shape
+    return (
+        b, t, k.shape[1], n, k.shape[2], h,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        mask.stride(0), mask.stride(1),
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+
+
+def _launch(q, k, v, mask, scale):
+    global launches
+    _check_call(q, k, v, mask)
+    b, t, n, h = q.shape
     from lap_tpu_torch import cuda_build
 
     lib = cuda_build.load(SOURCE, _SIGNATURE)
     out = torch.empty((b, t, n, h), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, t), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         out.data_ptr(), lse.data_ptr(),
-        b, t, s, n, kh, h,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        mask.stride(0), mask.stride(1),
-        float(scale), stream,
+        *_shape_strides_scale_stream(q, k, v, mask, scale),
     )
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed with cudaError {err}")
@@ -123,6 +175,73 @@ def flash_attention_forward(q, k, v, mask, *, scale: float | None = None):
     return flash_attention_plain(q, k, v, mask, scale=scale)
 
 
+def _launch_backward(q, k, v, mask, out, lse, dout, scale, *, need_dq=True, need_dkv=True):
+    """Launch the backward kernels; returns (dq, dk, dv), None where not needed."""
+    global launches_bwd_dq, launches_bwd_dkv
+    _check_call(q, k, v, mask)
+    if dout.device != q.device or dout.dtype != torch.bfloat16 or dout.shape != q.shape:
+        raise ValueError("the output gradient must be a bfloat16 tensor shaped like q, on q's device")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (q.shape[0], q.shape[2], q.shape[1]):
+        raise ValueError("lse must be float32 [B, N, T]")
+    # Gradients arrive from autograd in any layout; the kernels read [B,T,N,H].
+    dout = dout.contiguous()
+    lse = lse.contiguous()
+    delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()  # [B,N,T]
+    from lap_tpu_torch import cuda_build
+
+    lib = cuda_build.load(BWD_SOURCE, _BWD_SIGNATURE)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+              dout.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    tail = _shape_strides_scale_stream(q, k, v, mask, scale)
+    dq = dk = dv = None
+    if need_dq:
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        err = lib.flash_attention_bwd_dq(*common, dq.data_ptr(), *tail)
+        if err != 0:
+            raise RuntimeError(f"flash_attention_bwd_dq launch failed with cudaError {err}")
+        launches_bwd_dq += 1
+    if need_dkv:
+        dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+        dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+        err = lib.flash_attention_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(), *tail)
+        if err != 0:
+            raise RuntimeError(f"flash_attention_bwd_dkv launch failed with cudaError {err}")
+        launches_bwd_dkv += 1
+    return dq, dk, dv
+
+
+def flash_attention_backward(q, k, v, mask, out, lse, dout, *, scale: float | None = None,
+                             need_dq: bool = True, need_dkv: bool = True):
+    """(dq, dk, dv) of ``flash_attention`` for the output gradient ``dout``,
+    from the forward's ``out`` and ``lse``. On CUDA tensors only the kernels
+    that are needed are launched (dq; dk and dv together), the rest is None."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.is_cuda:
+        return _launch_backward(q, k, v, mask, out, lse, dout, scale, need_dq=need_dq, need_dkv=need_dkv)
+    return flash_attention_backward_plain(q, k, v, mask, out, lse, dout, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale):
+        out, lse = flash_attention_forward(q, k, v, mask, scale=scale)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        need_q, need_k, need_v = ctx.needs_input_grad[:3]
+        dq, dk, dv = flash_attention_backward(
+            *ctx.saved_tensors, dout, scale=ctx.scale, need_dq=need_q, need_dkv=need_k or need_v
+        )
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, mask, *, scale: float | None = None) -> torch.Tensor:
-    """Flash attention output only ([B,T,N,H] in q's dtype)."""
-    return flash_attention_forward(q, k, v, mask, scale=scale)[0]
+    """Flash attention output only ([B,T,N,H] in q's dtype), differentiable
+    in q, k and v."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, mask, float(scale))

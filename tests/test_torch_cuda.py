@@ -3,7 +3,10 @@
 Run on a GPU host with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 The flash kernel rounds P to bf16 before its P.V product while the plain
 version keeps P in f32; both round the output to bf16: tolerance 2 bf16 ulps
-relative plus atol 4e-3 on out, 1e-3 on lse.
+relative plus atol 4e-3 on out, 1e-3 on lse. The backward kernels round P and
+dS to bf16 and the gradients to bf16: 2 bf16 ulps relative plus 2 ulps of the
+gradient's largest entry, against the plain backward on the kernel's own out
+and lse; fully masked rows and all-false key columns exactly zero.
 """
 
 import pytest
@@ -52,3 +55,133 @@ def test_flash_kernel_raises_on_unsupported_head_dim(cuda):
     mask = torch.ones((1, 256, 256), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q, mask)
+
+
+BWD_CASES = [
+    (2, 692, 708, 8, 1, 256),  # the LAP-3B training call: 16 all-false action columns
+    (2, 130, 77, 8, 2, 256),
+    (1, 65, 200, 8, 2, 128),  # GQA group 4
+]
+
+
+def _bwd_inputs(cuda, b, t, s, n, kh, h):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((b, t, n, h), generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn((b, s, kh, h), generator=g, device=cuda).to(torch.bfloat16)
+    v = torch.randn((b, s, kh, h), generator=g, device=cuda).to(torch.bfloat16)
+    dout = torch.randn((b, t, n, h), generator=g, device=cuda).to(torch.bfloat16)
+    mask = torch.rand((b, t, s), generator=g, device=cuda) < 0.6
+    mask[:, : t // 7] = False  # fully masked rows
+    mask[:, :, s - 16 :] = False  # all-false key columns
+    return q, k, v, dout, mask
+
+
+def _assert_grads_close(grads, refs):
+    for got, ref in zip(grads, refs, strict=True):
+        got, ref = got.float(), ref.float()
+        bound = 1.6e-2 * ref.abs().max() + 1.6e-2 * ref.abs()
+        assert bool(((got - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("b,t,s,n,kh,h", BWD_CASES)
+def test_flash_backward_kernels_match_plain(cuda, b, t, s, n, kh, h):
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, dout, mask = _bwd_inputs(cuda, b, t, s, n, kh, h)
+    out, lse = fa.flash_attention_forward(q, k, v, mask)
+    before = (fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    dq, dk, dv = fa.flash_attention_backward(q, k, v, mask, out, lse, dout)
+    torch.cuda.synchronize()
+    assert (fa.launches_bwd_dq, fa.launches_bwd_dkv) == (before[0] + 1, before[1] + 1)
+    _assert_grads_close((dq, dk, dv), fa.flash_attention_backward_plain(q, k, v, mask, out, lse, dout))
+    assert dq[:, : t // 7].abs().max().item() == 0.0
+    assert dk[:, s - 16 :].abs().max().item() == 0.0 and dv[:, s - 16 :].abs().max().item() == 0.0
+
+
+def test_flash_kernels_take_the_strides_of_the_training_call(cuda):
+    """As ``gemma.Attention`` calls them under ``stop_action_to_vlm_grad``: q,
+    the output gradient and the mask are the first 692 rows of the joint
+    708-row tensors (batch strides of 708 rows), at the per-device batch 8."""
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    b, t, s = 8, 692, 708
+    q, k, v, dout, mask = _bwd_inputs(cuda, b, s, s, 8, 1, 256)
+    q, dout, mask = q[:, :t], dout[:, :t], mask[:, :t]
+    assert not q.is_contiguous() and not mask.is_contiguous()
+    out, lse = fa.flash_attention_forward(q, k, v, mask)
+    dq, dk, dv = fa.flash_attention_backward(q, k, v, mask, out, lse, dout)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, mask)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=4e-3, rtol=1.6e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    _assert_grads_close((dq, dk, dv), fa.flash_attention_backward_plain(q, k, v, mask, out, lse, dout))
+    assert dq[:, : s // 7].abs().max().item() == 0.0
+    assert dk[:, s - 16 :].abs().max().item() == 0.0 and dv[:, s - 16 :].abs().max().item() == 0.0
+
+
+def test_flash_attention_autograd_launches_the_backward_kernels(cuda):
+    """Through ``torch.autograd``: a non-contiguous output gradient, and only
+    the dQ kernel when keys and values are detached (the stop-gradient call)."""
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, dout, mask = _bwd_inputs(cuda, 1, 200, 216, 8, 1, 256)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention(q, k, v, mask)
+    before = (fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    out.transpose(1, 2).backward(dout.transpose(1, 2))  # the gradient arrives transposed
+    torch.cuda.synchronize()
+    assert (fa.launches_bwd_dq, fa.launches_bwd_dkv) == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        o, lse = fa.flash_attention_forward(q, k, v, mask)
+        refs = fa.flash_attention_backward_plain(q, k, v, mask, o, lse, dout)
+    _assert_grads_close((q.grad, k.grad, v.grad), refs)
+
+    q2 = q.detach().clone().requires_grad_()
+    fa.flash_attention(q2, k.detach(), v.detach(), mask).backward(dout)
+    assert (fa.launches_bwd_dq, fa.launches_bwd_dkv) == (before[0] + 2, before[1] + 1)
+    torch.testing.assert_close(q2.grad, q.grad, atol=0, rtol=0)
+
+
+def test_flash_backward_raises_on_a_cuda_tensor_it_cannot_take(cuda):
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    q = torch.zeros((1, 256, 16, 72), dtype=torch.bfloat16, device=cuda)
+    mask = torch.ones((1, 256, 256), dtype=torch.bool, device=cuda)
+    lse = torch.zeros((1, 16, 256), device=cuda)
+    with pytest.raises(ValueError):
+        fa.flash_attention_backward(q, q, q, mask, q, lse, q)
+
+
+def test_lap_training_pass_goes_through_the_kernels(cuda):
+    """A narrow two-expert model at head dim 128 and 200 prefix tokens: the
+    ``auto`` rule takes the flash kernels forward and backward on the card."""
+    from lap_tpu_torch.models import gemma
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    cfg = gemma.Config(width=128, depth=2, mlp_dim=256, num_heads=2, num_kv_heads=1, head_dim=128)
+    model = gemma.Module([cfg, cfg], use_adarms=[False, True], stop_action_to_vlm_grad=True,
+                         vocab_size=512, device=cuda, dtype=torch.float32)
+    from lap_tpu_torch.models.init import random_init_
+
+    random_init_(model, 0)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    prefix = torch.randn((2, 200, 128), generator=g, device=cuda)
+    suffix = torch.randn((2, 8, 128), generator=g, device=cuda)
+    cond = torch.randn((2, 128), generator=g, device=cuda)
+    mask = torch.ones((2, 208, 208), dtype=torch.bool, device=cuda)
+    mask[:, :200, 200:] = False
+    pos = torch.arange(208, device=cuda).expand(2, 208)
+    counts = {}
+    for impl in ("auto", "xla"):
+        model.set_attn_impl(impl)
+        model.zero_grad(set_to_none=True)
+        before = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+        (o0, o1), _ = model([prefix, suffix], pos, mask, [None, cond], want_cache=False)
+        (o0.float().square().mean() + o1.float().square().mean()).backward()
+        torch.cuda.synchronize()
+        counts[impl] = tuple(a - b for a, b in zip((fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv), before))
+        counts[impl + "_grad"] = model.layers[0].attn.kv_einsum[0].w.grad.clone()
+    assert counts["auto"] == (4, 2, 2)  # 2 layers, forward run again by the rematerialisation
+    assert counts["xla"] == (0, 0, 0)
+    rel = (counts["auto_grad"] - counts["xla_grad"]).norm() / counts["xla_grad"].norm()
+    assert rel.item() < 3e-2

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "lap_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+TRAINING_MODULES = ("config", "optimizer", "state", "train", "train_step")
 JAX_LIBS = ("jax", "jaxlib", "flax", "optax", "orbax")
 
 
@@ -28,7 +29,32 @@ def test_port_imports_with_jax_blocked():
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 10
+    assert int(proc.stdout.split()[-1]) >= 10 + len(TRAINING_MODULES)
+
+
+def test_training_sources_are_scanned():
+    scanned = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for name in TRAINING_MODULES:
+        assert f"lap_tpu_torch/training/{name}.py" in scanned
+    assert "lap_tpu_torch/models/metrics.py" in scanned
+
+
+@pytest.mark.parametrize("path", sorted((REPO / "lap_tpu_torch" / "csrc").glob("*.cu*")),
+                         ids=lambda p: p.name)
+def test_kernel_sources_call_no_library_kernel(path):
+    """Hand-written kernels: no cuBLAS, cuDNN, CUTLASS device GEMM or PyTorch header."""
+    text = path.read_text()
+    assert not re.search(r"#include\s*[<\"](cublas|cudnn|cutlass|torch|ATen|c10)", text)
+    assert "mma.sync" in text or path.suffix == ".cu" and "flash_attention_common.cuh" in text
+
+
+def test_trainer_entry_point_raises_without_cuda(monkeypatch):
+    from lap_tpu_torch.training.config import get_config
+    from lap_tpu_torch.training.train import build_trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_trainer(get_config("debug"))
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))

@@ -12,7 +12,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-from torch import nn  # noqa: E402
 
 from lap_tpu.models import gemma as jax_gemma  # noqa: E402
 from lap_tpu.models import siglip as jax_siglip  # noqa: E402
@@ -20,18 +19,10 @@ from lap_tpu_torch.models import gemma as port_gemma  # noqa: E402
 from lap_tpu_torch.models import siglip as port_siglip  # noqa: E402
 from lap_tpu_torch.models.convert import load_jax_params  # noqa: E402
 from lap_tpu_torch.models.init import random_init_  # noqa: E402
-from torch_port_helpers import TORCH_THREADS, randomize_params  # noqa: E402
+from torch_port_helpers import TORCH_THREADS, holder, randomize_params  # noqa: E402
 
 torch.set_num_threads(TORCH_THREADS)
 TOL = dict(atol=2e-5, rtol=2e-5)
-
-
-def _holder(**modules) -> nn.Module:
-    """Put port modules under the names the bridge gives them (llm/img)."""
-    holder = nn.Module()
-    for name, module in modules.items():
-        setattr(holder, name, module)
-    return holder
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +38,7 @@ def gemma_pair():
         embed_dtype=torch.float32, attn_impl="xla", device="cpu", dtype=torch.float32,
     )
     random_init_(pmod, 0)  # overwritten below; proves nothing is left behind
-    load_jax_params(_holder(llm=pmod), {"llm": params})
+    load_jax_params(holder(llm=pmod), {"llm": params})
     return jmod, {"params": params}, pmod
 
 
@@ -118,7 +109,7 @@ def test_gemma_fused_qkv_branch_matches_jax():
         [port_gemma.Config(**fields)], embed_dtype=torch.float32, attn_impl="xla",
         device="cpu", dtype=torch.float32,
     )
-    load_jax_params(_holder(llm=pmod), {"llm": params})
+    load_jax_params(holder(llm=pmod), {"llm": params})
     assert pmod.layers[0].attn.fused_qkv
     x = np.random.default_rng(19).standard_normal((2, 6, 32)).astype(np.float32)
     mask = np.tril(np.ones((6, 6), bool))[None].repeat(2, 0)
@@ -150,7 +141,7 @@ def test_siglip_matches_jax():
         port_siglip.get_config("dummy", head_dim_out=48), image_size=(28, 42),
         attn_impl="xla", device="cpu", dtype=torch.float32,
     )
-    load_jax_params(_holder(img=pmod), {"img": params})
+    load_jax_params(holder(img=pmod), {"img": params})
     with torch.no_grad():
         got = pmod(torch.from_numpy(images))
     assert got.shape == (3, 6, 48)

@@ -97,3 +97,100 @@ def random_obs_arrays(seed: int, *, batch: int, valid: list[int], cfg_kw: dict) 
         tokenized_prompt_mask=np.arange(t)[None, :] < np.asarray(valid)[:, None],
         tokenized_langact_mask=np.zeros((batch, t), bool),
     )
+
+
+def replay_augment_draws(rng, batch: int, height: int, width: int) -> dict:
+    """The values ``lap_tpu.models.preprocessing.augment_images(images, rng)``
+    draws for a batch, key by key: crop offsets, angle (radians) and the three
+    jitter factors, each [batch]."""
+    import jax
+    import jax.numpy as jnp
+
+    ch, cw = int(height * 0.95), int(width * 0.95)
+    cols = {n: [] for n in ("crop_y", "crop_x", "angle", "brightness", "contrast", "saturation")}
+    for sample_key in jax.random.split(rng, batch):
+        k1, k2, k3 = jax.random.split(sample_key, 3)
+        ky, kx = jax.random.split(k1)
+        cols["crop_y"].append(jax.random.randint(ky, (), 0, height - ch + 1))
+        cols["crop_x"].append(jax.random.randint(kx, (), 0, width - cw + 1))
+        cols["angle"].append(jax.random.uniform(k2, (), minval=-5.0, maxval=5.0) * jnp.pi / 180.0)
+        kb, kc, ks = jax.random.split(k3, 3)
+        for name, k in (("brightness", kb), ("contrast", kc), ("saturation", ks)):
+            cols[name].append(1.0 + jax.random.uniform(k, (), minval=-0.2, maxval=0.2))
+    return {n: np.asarray(jnp.stack(v)) for n, v in cols.items()}
+
+
+def replay_preprocess_draws(rng, *, image_keys, batch: int, resolution) -> dict:
+    """Per camera, what ``preprocess_observation(rng, ..., train=True)`` draws
+    (it folds the camera's index into ``rng``)."""
+    import jax
+
+    return {
+        key: replay_augment_draws(jax.random.fold_in(rng, i), batch, *resolution)
+        for i, key in enumerate(image_keys)
+    }
+
+
+def jax_loss_randomness(rng, *, image_keys, batch: int, resolution, action_shape) -> dict:
+    """The random values ``lap_tpu``'s ``compute_loss(rng, ..., train=True)``
+    draws, replayed key by key so the port can be fed the same ones: per
+    camera the augmentation draws, then the flow noise and time."""
+    import jax
+
+    preprocess_rng, _, noise_rng, time_rng = jax.random.split(rng, 4)
+    aug = replay_preprocess_draws(preprocess_rng, image_keys=image_keys, batch=batch, resolution=resolution)
+    noise = np.asarray(jax.random.normal(noise_rng, action_shape))
+    time = np.asarray(jax.random.uniform(time_rng, action_shape[:-2]) ** (1.0 / 1.5) * 0.999 + 0.001)
+    return dict(aug=aug, noise=noise, time=time)
+
+
+def port_aug_params(aug: dict) -> dict:
+    """``jax_loss_randomness()["aug"]`` as the port's ``AugmentParams``."""
+    import torch
+
+    from lap_tpu_torch.models.preprocessing import AugmentParams
+
+    return {k: AugmentParams(**{n: torch.from_numpy(np.array(v)) for n, v in vals.items()})
+            for k, vals in aug.items()}
+
+
+def train_obs_arrays(seed: int, *, batch: int, valid: list[int], cfg_kw: dict, langact_from: int = 4) -> dict:
+    """``random_obs_arrays`` plus what the training loss reads: a causal
+    language-action span, a token loss mask, and small vocabulary ids."""
+    arrays = random_obs_arrays(seed, batch=batch, valid=valid, cfg_kw=cfg_kw)
+    t = cfg_kw["max_token_len"]
+    rng = np.random.default_rng(seed + 1000)
+    arrays["tokenized_langact_mask"] = np.broadcast_to(np.arange(t)[None, :] >= langact_from, (batch, t)).copy()
+    arrays["token_loss_mask"] = rng.random((batch, t)) < 0.8
+    return arrays
+
+
+def port_observation(arrays: dict):
+    """A port ``CoTObservation`` on the CPU from a dict of numpy arrays."""
+    import torch
+
+    from lap_tpu_torch.models.types import CoTObservation
+
+    def conv(v):
+        return {k: conv(x) for k, x in v.items()} if isinstance(v, dict) else torch.from_numpy(np.array(v))
+
+    return CoTObservation(**{k: conv(v) for k, v in arrays.items()})
+
+
+def jax_observation(arrays: dict):
+    import jax
+    import jax.numpy as jnp
+
+    from lap_tpu.models.types import CoTObservation
+
+    return CoTObservation(**{k: jax.tree.map(jnp.asarray, v) for k, v in arrays.items()})
+
+
+def holder(**modules):
+    """Port modules under the names the weight bridge gives them (llm, img)."""
+    from torch import nn
+
+    out = nn.Module()
+    for name, module in modules.items():
+        setattr(out, name, module)
+    return out
