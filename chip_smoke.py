@@ -1,56 +1,70 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
-Two paths are driven: LAP-3B flow-matching serving (phases 5-8) and the LAP-3B
-training step (phases 9-10). Phases, in order; any failure exits non-zero:
+Four paths are driven: LAP-3B flow-matching serving in bf16 (phase 6) and
+with int8/int4 expert MLPs (phase 7), LAP-3B AR language-action serving in
+bf16, int8 and int4 (phase 8), and the LAP-3B training step (phases 10-11).
+Each is driven with the launch counters set to 0 just before it and read
+just after. Phases, in order; any failure exits non-zero:
  1. build every CUDA kernel of the paths from the sources in this checkout
     (``lap_tpu_torch/csrc/``, into ``lap_tpu_torch/_build/``), one ``nvcc``
     per source, in parallel;
- 2. hold each kernel (the flash forward, the dQ and the dK/dV backward)
-    against its plain PyTorch version on the card, on the paths' shapes and
-    edge cases, with the tolerances stated below; the training call is held
-    at the path's batch and with the strides the model gives it (q and the
-    mask are the first 692 rows of the joint 708-row tensors), forward (out,
-    lse) and backward;
+ 2. hold each kernel (the flash forward, the dQ and the dK/dV backward, the
+    int8 and int4 dequant matmuls) against its plain PyTorch version on the
+    card, on the paths' shapes and edge cases, with the tolerances stated
+    below; the training call is held at the path's batch and with the
+    strides the model gives it (q and the mask are the first 692 rows of the
+    joint 708-row tensors), forward (out, lse) and backward; the dequant
+    matmuls at 1, 16, 100 and 128 rows for every quantized weight shape;
  3. time each kernel, its plain version and one PyTorch library call that
     computes the same function (a yardstick the port never calls), beside the
-    least time the card could take (``bound_ms``); the backward kernels are
-    timed last, at the batch the training path ran with;
+    least time the card could take (``bound_ms``); the dequant matmuls by
+    their device time (cold L2), the backward kernels last, at the batch the
+    training path ran with;
  4. run the dummy-size model in f32 on the card and on the CPU with the same
     weights (the CPU path is what the tests hold against the JAX package):
-    ``sample_actions``, and one training pass (loss, every gradient leaf and
-    the global gradient norm);
- 5. build the full-width LAP-3B flow policy (gemma_2b + gemma_300m + SigLIP
+    ``sample_actions``, AR ``sample_tokens``, and one training pass (loss,
+    every gradient leaf and the global gradient norm);
+ 5. build the full-width LAP-3B policy (gemma_2b + gemma_300m + SigLIP
     So400m/14, bf16) on the card from seeded random weights;
- 6. serve requests through ``Policy.infer`` with the launch counters reset
-    just before and read just after: 18 flash launches per request;
- 7. compare ``sample_actions`` with ``attn_impl="flash"`` against
-    ``attn_impl="xla"`` on one request with the same noise;
- 8. report infer latency (p50, p90 over ``N_REQUESTS`` closed-loop requests
-    at batch 1) and the chunk rate, and profile one more request: device
-    time by kernel against its wall time;
- 9. build the full-width LAP-3B trainer (the ``lap`` config: float32
+ 6. flow serving: requests through ``Policy.infer`` (18 flash launches
+    each), ``sample_actions`` with ``attn_impl="flash"`` against
+    ``attn_impl="xla"``, latency (p50, p90 over ``N_REQUESTS`` closed-loop
+    requests at batch 1) and one profiled request;
+ 7. quantized flow serving: int8, then int4 copies of the decode weights;
+    per request 360 dequant launches (18 expert MLPs x 2 matmuls x 10 Euler
+    steps) and 18 flash launches; actions against bf16, for information;
+ 8. AR serving: ``ARPolicy`` at batch 1 decoding ``AR_STEPS`` tokens, in bf16,
+    int8 and int4: per request 18 flash launches (the 692-row prefill) and,
+    quantized, 73 * AR_STEPS + 1 dequant launches (18 layers x 4 matmuls + the
+    vocab head per step, plus the first logits); latency per request and per
+    token, the prefill alone, and one profiled request per mode;
+ 9. quantized AR logits with the kernels against the same model with the
+    plain versions, teacher-forced, and the quantized-vs-bf16 difference of
+    the first logits (information);
+10. build the full-width LAP-3B trainer (the ``lap`` config: float32
     parameters under bf16 activations, AdamW, EMA, stop-gradient, per-layer
     rematerialisation) from seeded random weights and take optimizer steps on
-    the synthetic batch with the launch counters reset just before and read
-    just after: per step 36 forward (18 layers, run again by the
+    the synthetic batch: per step 36 forward (18 layers, run again by the
     rematerialisation), 18 dQ and 18 dK/dV launches; the loss is finite and
     falls; step time, peak memory, and one profiled step with its device
     time summed by kernel family over every kernel;
-10. compare one loss-and-gradient pass with the kernels against one with
+11. compare one loss-and-gradient pass with the kernels against one with
     ``attn_impl="xla"`` from the same weights, batch, noise and time, and the
     float32 global gradient norm against a float64 sum over the same
     gradients.
 
-The last lines of standard output are the ``kernels`` JSON line, the card's
-name and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
-The script imports nothing of JAX or of the JAX package.
+The serving model is freed before the training phase. The last lines of
+standard output are the ``kernels`` JSON line, the card's name and power
+limit from nvidia-smi, and ``{"ok": true, "device": ...}``. The script
+imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -98,6 +112,46 @@ TRAIN_GRAD_NORM_REL_TOL = 5e-2
 # float64 accumulation over the same gradients.
 NORM_REL_TOL = 1e-5
 
+# Dequant matmuls against their plain versions on the card: the plain
+# version is taken in f32 on the same bf16 x, the kernel rounds its f32 sum
+# to bf16 once: one bf16 rounding plus the summation order.
+QUANT_RTOL, QUANT_ATOL_OF_MAX = 8e-3, 1e-4
+QUANT_ROWS = (1, 16, 100, 128)
+# (name, K, N) of every quantized weight of LAP-3B serving.
+QUANT_SHAPES = (
+    ("q_attn_vec", 2048, 2048), ("mlp_gate_up", 2048, 32768), ("mlp_down", 16384, 2048),
+    ("vocab", 2048, 257152), ("expert_gate_up", 1024, 8192), ("expert_down", 4096, 1024),
+)
+QUANT_TIMED = ("mlp_down", "mlp_gate_up", "vocab")
+QUANT_TIMED_ROWS = (1, 16)
+# The shape whose times stand in the kernels JSON line: the vocab head of an
+# AR step, the largest weight read of a decode step.
+QUANT_JSON_SHAPE = ("vocab", 1)
+# Operand copies cycled through when timing, at least this many bytes, so
+# that each call finds its weight out of the 50 MB L2 as a decode step does.
+COLD_BYTES = 256e6
+# AR serving at batch 1: a fixed budget and no EOS stop, so the work does not
+# depend on what random weights emit.
+AR_STEPS = 64
+AR_REQUESTS = 5
+QUANT_FLOW_REQUESTS = 4
+# Quantized AR logits with the kernels against the same model with the plain
+# versions, teacher-forced over the first AR_FORCED_STEPS steps, relative L2.
+# One bf16 rounding that lands on the other side (a different f32 summation
+# order) changes every later bf16 rounding of the decode step, and 18
+# random-weight layers carry that to ~1e-2 of the logits: the plain version
+# against itself with float64 sums moves them as far (measured 1.01e-2
+# int8, 1.08e-2 int4 on an H100). So the logits must come within
+# AR_FLOOR_FACTOR of that floor, measured in the same run, and every dequant
+# call of the pass within the kernel check's tolerance of the plain version
+# on the same input.
+AR_FORCED_STEPS = 8
+AR_KERNEL_REL_TOL = 1e-2  # the target, reported beside the floor
+AR_FLOOR_FACTOR = 1.5
+# The dummy model's AR decode on the card against the CPU: its embedding
+# table is scaled up so that no two logits of a step are near-tied.
+SMALL_AR_STEPS = 8
+
 # Closed loop, one client, batch 1: p90 has three beyond it.
 N_REQUESTS = 30
 TRAIN_BATCH = 8  # per device; float32 parameters and EMA fit an 80 GB card at this batch
@@ -109,8 +163,11 @@ LANGACT_START = 8  # first language-action slot of the synthetic training prompt
 TRAINING_CASE = "training_step"  # the kernel case with the training path's shape, batch and strides
 
 
+_START = time.monotonic()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.monotonic() - _START:7.1f}s] {msg}", flush=True)
 
 
 def fail(msg: str) -> int:
@@ -449,6 +506,144 @@ def time_flash_backward(device, batch):
 
 
 # ---------------------------------------------------------------------------
+# Dequant matmuls
+# ---------------------------------------------------------------------------
+
+
+def quant_kinds():
+    """(name, module, quantize, kernel wrapper, plain version) of each dequant matmul."""
+    from lap_tpu_torch.ops import int4_matmul as i4
+    from lap_tpu_torch.ops import int8_matmul as i8
+
+    return (
+        ("int8_matmul", i8, i8.quantize_int8, i8.int8_matmul, i8.int8_matmul_plain),
+        ("int4_matmul", i4, i4.quantize_int4, i4.int4_matmul, i4.int4_matmul_plain),
+    )
+
+
+def check_quant_kernels(device):
+    """Each dequant kernel against its plain version (f32, same bf16 x) at
+    every quantized weight shape of the paths and 1, 16, 100 and 128 rows;
+    and the same bits from two calls (the split-K sums run in a fixed order)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(6)
+    worst = {}
+    for shape_name, k, n in QUANT_SHAPES:
+        w = (torch.randn((k, n), generator=g, device=device) * 0.02).to(torch.bfloat16)
+        for name, _, quantize, kernel, plain in quant_kinds():
+            wq, scale = quantize(w)
+            for m in QUANT_ROWS:
+                x = torch.randn((m, k), generator=g, device=device).to(torch.bfloat16)
+                got = kernel(x, wq, scale)
+                torch.cuda.synchronize()
+                ref = plain(x.float(), wq, scale)
+                err = (got.float() - ref).abs()
+                bound = QUANT_RTOL * ref.abs() + QUANT_ATOL_OF_MAX * ref.abs().max()
+                log(f"kernel {name} case={shape_name} M={m} K={k} N={n} max_abs_err={err.max().item():.3e} "
+                    f"max|ref|={ref.abs().max().item():.3e} worst err/bound={(err / bound).max().item():.3f}")
+                if got.dtype != torch.bfloat16 or not torch.isfinite(got.float()).all():
+                    raise AssertionError(f"{name} {shape_name} M={m}: bad output")
+                if bool((err > bound).any()):
+                    raise AssertionError(f"{name} {shape_name} M={m}: differs beyond {QUANT_RTOL}|ref| + "
+                                         f"{QUANT_ATOL_OF_MAX} max|ref|")
+                if m == 16 and not torch.equal(got, kernel(x, wq, scale)):
+                    raise AssertionError(f"{name} {shape_name}: two calls gave different bits")
+                worst[name] = max(worst.get(name, 0.0), err.max().item())
+            del wq, scale
+        del w
+    torch.cuda.empty_cache()
+    return worst
+
+
+def device_ms_per_call(fns, iters: int) -> float:
+    """Device time per call, summed over every kernel a call launches
+    (torch.profiler), cycling through ``fns``. A dequant call takes the host
+    longer to launch than the card to run, so an event-timed loop would time
+    the host. Each kernel counts with its mean time per launch times its
+    launches per call: the trace may drop a few events at its ends (one call
+    once gave a time below the bound from the sum of the recorded events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns[:3]:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+    if any(e.count % iters for e in events):
+        log(f"timing: the profile recorded {[e.count for e in events]} launches of its kernels for {iters} calls")
+    return sum(e.device_time_total / e.count * max(1, round(e.count / iters)) for e in events) / 1e3
+
+
+def dequant_bound(name, m, k, n):
+    """Least time for one call: its bytes (x, the packed weight and scales
+    read once, out written once) at 3.35 TB/s, or its 2MKN bf16 operations
+    at 989 TFLOP/s, whichever is larger."""
+    weight = k * n + n * 4 if name == "int8_matmul" else k * n // 2 + (k // 256) * n * 4
+    nbytes = m * k * 2 + weight + m * n * 2
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    flops_ms = 2 * m * k * n / PEAK_BF16_FLOPS * 1e3
+    return max(bytes_ms, flops_ms), ("operations" if flops_ms > bytes_ms else "bytes"), nbytes
+
+
+def time_quant_kernels(device):
+    """Each dequant kernel at the decode shapes that matter most (MLP down,
+    gate/up, vocab head; 1 and 16 rows) with cold L2, beside its bound, its
+    plain version and ``torch.matmul`` on the bf16 weight (what the bf16 path
+    runs, 2x or 4x the weight bytes); ``torch._weight_int8pack_mm`` too where
+    it runs on CUDA. Returns {kernel: {(shape, M): timing}}."""
+    import itertools
+
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(7)
+    shapes = {name: (k, n) for name, k, n in QUANT_SHAPES}
+    out = {name: {} for name, *_ in quant_kinds()}
+    for shape_name in QUANT_TIMED:
+        k, n = shapes[shape_name]
+        w = (torch.randn((k, n), generator=g, device=device) * 0.02).to(torch.bfloat16)
+        lib_copies = [w] + [w.clone() for _ in range(max(0, math.ceil(COLD_BYTES / w.nbytes) - 1))]
+        for name, _, quantize, kernel, plain in quant_kinds():
+            wq, scale = quantize(w)
+            copies = [(wq, scale)] + [(wq.clone(), scale.clone())
+                                      for _ in range(max(0, math.ceil(COLD_BYTES / wq.nbytes) - 1))]
+            for m in QUANT_TIMED_ROWS:
+                x = torch.randn((m, k), generator=g, device=device).to(torch.bfloat16)
+                ms = device_ms_per_call([lambda c=c: kernel(x, *c) for c in copies], iters=40)
+                cycle = itertools.cycle(copies)
+                events_ms = time_cuda(lambda: kernel(x, *next(cycle)), iters=40)
+                plain_ms = device_ms_per_call([lambda: plain(x, wq, scale)], iters=3)
+                library_ms = device_ms_per_call([lambda c=c: torch.matmul(x, c) for c in lib_copies], iters=40)
+                bound_ms, bound_by, nbytes = dequant_bound(name, m, k, n)
+                pack_ms = None
+                if name == "int8_matmul":
+                    try:
+                        w_nk, s_bf16 = wq.t().contiguous(), scale.to(torch.bfloat16)
+                        pack_ms = device_ms_per_call([lambda: torch._weight_int8pack_mm(x, w_nk, s_bf16)], iters=20)
+                        del w_nk
+                    except (RuntimeError, NotImplementedError) as e:  # a yardstick only, never on the path
+                        log(f"timing {name} {shape_name} M={m}: torch._weight_int8pack_mm does not run here "
+                            f"({type(e).__name__}: {str(e).splitlines()[0][:120]})")
+                out[name][(shape_name, m)] = dict(
+                    ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                )
+                log(f"timing {name} {shape_name} M={m} K={k} N={n}: kernel_ms={ms:.5f} (device time, "
+                    f"{len(copies)} weight copies; event-timed loop {events_ms:.5f}) bound_ms={bound_ms:.5f} "
+                    f"({bound_by}, {nbytes} bytes) x{ms / bound_ms:.2f} of bound, "
+                    f"{nbytes / ms / 1e6:.1f} GB/s; plain_ms={plain_ms:.5f} "
+                    f"library_ms(torch.matmul, bf16 weight)={library_ms:.5f}"
+                    + ("" if pack_ms is None else f" torch._weight_int8pack_mm_ms={pack_ms:.5f}"))
+            del wq, scale, copies
+        del w, lib_copies
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Policy
 # ---------------------------------------------------------------------------
 
@@ -474,6 +669,7 @@ def make_request(seed: int, config):
 # family that matches takes the kernel, "other" the rest.
 KERNEL_FAMILIES = (
     ("flash kernels", ("flash_",)),
+    ("dequant kernels", ("int8_matmul", "int4_matmul", "splitk_reduce")),
     ("foreach passes (optimizer, EMA, norms)", ("multi_tensor_apply",)),
     ("convolution", ("cudnn", "convolve", "fprop", "wgrad", "dgrad")),
     ("GEMM", ("nvjet", "gemm", "cutlass", "xmma", "cublas", "gemv")),
@@ -484,14 +680,16 @@ KERNEL_FAMILIES = (
 )
 
 
-def report_profile(prof, what: str, wall_ms: float) -> None:
+def report_profile(prof, what: str, wall_ms: float, tokens: int = 0) -> None:
     """Device time of one profiled call against its wall time: the largest
     kernels by name, then every kernel summed by family, so that the families
-    add up to the whole device time."""
+    add up to the whole device time (and per token, for an AR request)."""
     events = [e for e in prof.key_averages() if e.device_time_total > 0 and e.device_type.name == "CUDA"]
     device_ms = sum(e.device_time_total for e in events) / 1e3
-    log(f"profile: one {what} wall_ms={wall_ms:.3f} device_kernel_ms={device_ms:.3f} "
-        f"kernels={sum(e.count for e in events)}")
+    n_kernels = sum(e.count for e in events)
+    log(f"profile: one {what} wall_ms={wall_ms:.3f} device_kernel_ms={device_ms:.3f} kernels={n_kernels}"
+        + (f" per token: wall_ms={wall_ms / tokens:.3f} device_ms={device_ms / tokens:.3f} "
+           f"kernels={n_kernels / tokens:.1f}" if tokens else ""))
     for e in sorted(events, key=lambda e: -e.device_time_total)[:12]:
         log(f"profile:   {e.device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
     families: dict[str, list] = {name: [0.0, 0] for name, _ in KERNEL_FAMILIES}
@@ -508,30 +706,46 @@ def report_profile(prof, what: str, wall_ms: float) -> None:
     for e in sorted(other, key=lambda e: -e.device_time_total)[:4]:
         log(f"profile:   other  {e.device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
     for e in events:
-        if "flash_" in e.key:
-            log(f"profile:   flash  {e.device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
+        if any(k in e.key for k in ("flash_", "int8_matmul", "int4_matmul", "splitk_reduce")):
+            log(f"profile:   kernel {e.device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
 
 
-def profile_one_request(policy, request) -> None:
+def profile_one_request(policy, request, what: str = "infer", tokens: int = 0) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         policy.infer(request)
         wall_ms = (time.monotonic() - t0) * 1e3
-    report_profile(prof, "infer", wall_ms)
+    report_profile(prof, what, wall_ms, tokens)
 
 
-def run_policy(device):
-    import numpy as np
+def reset_launch_counters() -> None:
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    for _, module, *_ in quant_kinds():
+        module.launches = 0
+
+
+def serving_launches() -> tuple[int, int, int]:
+    """(flash forward, int8, int4) launches since the last reset."""
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    return (fa.launches, *(module.launches for _, module, *_ in quant_kinds()))
+
+
+def percentiles(latencies):
+    lat = sorted(latencies)
+    return statistics.median(lat), lat[min(len(lat) - 1, math.ceil(0.9 * len(lat)) - 1)]
+
+
+def build_serving_model(device):
     import torch
 
     from lap_tpu_torch.models.lap_model import LAP, LAPConfig
-    from lap_tpu_torch.models.types import CoTObservation
-    from lap_tpu_torch.ops import flash_attention as fa
-    from lap_tpu_torch.policies.policy import Policy, _stack_batch
 
     config = LAPConfig(
         action_dim=7, action_horizon=16, max_token_len=PROMPT_LEN, enable_action_training=True
@@ -541,26 +755,36 @@ def run_policy(device):
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"policy: built LAP-3B ({n_params} params, bf16) in {time.monotonic() - t0:.1f} s")
-    policy = Policy(model, num_steps=10, seed=0)
+    return model, config
 
+
+def run_policy(model, config, device):
+    import numpy as np
+    import torch
+
+    from lap_tpu_torch.models.types import CoTObservation
+    from lap_tpu_torch.policies.policy import Policy, _stack_batch
+
+    policy = Policy(model, num_steps=10, seed=0)
     requests = [make_request(i, config) for i in range(N_REQUESTS)]
     warm = policy.infer(requests[0])  # first call: cuBLAS/cuDNN setup
     log(f"policy: warm-up infer {warm['policy_timing']['infer_ms']:.1f} ms")
 
-    fa.launches = 0
+    reset_launch_counters()
     latencies, per_request = [], []
     for req in requests:
-        before = fa.launches
+        before = serving_launches()
         out = policy.infer(req)
-        per_request.append(fa.launches - before)
+        per_request.append(tuple(a - b for a, b in zip(serving_launches(), before)))
         latencies.append(out["policy_timing"]["infer_ms"])
         actions = out["actions"]
         if actions.shape != (16, 7) or not np.isfinite(actions).all():
             raise AssertionError(f"bad actions: shape {actions.shape}")
-    launches = fa.launches
-    log(f"policy: flash launches per request {per_request} (total {launches})")
-    if any(c != 18 for c in per_request):
-        raise AssertionError(f"expected 18 flash launches per request, got {per_request}")
+    launches = serving_launches()[0]
+    depth = len(model.llm.layers)
+    log(f"policy: (flash, int8, int4) launches per request {sorted(set(per_request))} (flash total {launches})")
+    if any(c != (depth, 0, 0) for c in per_request):
+        raise AssertionError(f"expected {depth} flash and no dequant launches per request, got {per_request}")
 
     # Flash vs einsum attention on one request, same noise.
     obs = CoTObservation.from_dict(_stack_batch([requests[0]]), device=device)
@@ -586,11 +810,9 @@ def run_policy(device):
 
     profile_one_request(policy, requests[0])
 
-    lat = sorted(latencies)
-    p50 = statistics.median(lat)
-    p90 = lat[min(len(lat) - 1, math.ceil(0.9 * len(lat)) - 1)]
+    p50, p90 = percentiles(latencies)
     log(
-        f"policy: infer over {len(lat)} requests p50_ms={p50:.3f} p90_ms={p90:.3f} "
+        f"policy: infer over {len(latencies)} requests p50_ms={p50:.3f} p90_ms={p90:.3f} "
         f"chunk_rate_hz={1000.0 / p50:.3f} all_ms={[round(x, 3) for x in latencies]} "
         f"peak_mem_gb={torch.cuda.max_memory_allocated() / 2**30:.2f}"
     )
@@ -630,27 +852,238 @@ def check_small_reference(device) -> None:
         raise AssertionError(f"card and CPU disagree on the dummy model: {err}")
 
 
-def log_unported_kernel_bounds() -> None:
-    """Bounds of the two TPU kernels still to be ported (weight-only int8 and
-    int4 dequant matmuls of quantized serving), from their shapes alone: no
-    kernel exists yet and nothing is timed. The JAX package calls them for
-    decode-shaped rows (at most 128; 16 flow-suffix rows or 1 AR token) on
-    gemma_2b weights of at least 4 Mi elements; int4 scales are per group of
-    256 contraction rows. x and out are bf16, scales f32; the products run
-    in bf16 after the dequantisation, so the bf16 peak applies."""
-    shapes = {"mlp_down": (16384, 2048), "mlp_gate_up": (2048, 32768), "vocab": (2048, 257152)}
-    for rows in (1, 16):
-        for name, (k, n) in shapes.items():
-            flops_ms = 2 * rows * k * n / PEAK_BF16_FLOPS * 1e3
-            act_bytes = rows * k * 2 + rows * n * 2
-            for kind, nbytes in (
-                ("int8_matmul", act_bytes + k * n + n * 4),
-                ("int4_matmul", act_bytes + k * n // 2 + (k // 256) * n * 4),
-            ):
-                bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-                log(f"bound (not ported, nothing timed): {kind} {name} M={rows} K={k} N={n}: "
-                    f"bound_ms={max(flops_ms, bytes_ms):.5f} by {'operations' if flops_ms >= bytes_ms else 'bytes'} "
-                    f"(bytes={nbytes} -> {bytes_ms:.5f} ms, flops={2 * rows * k * n} -> {flops_ms:.5f} ms)")
+def run_quant_flow(model, config, device):
+    """Flow requests with int8, then int4 copies of the decode weights: only
+    the action expert's MLPs (16 rows per Euler step) take the dequant
+    kernels; the 692-row prefill keeps the exact bf16 product. Returns
+    {mode: (flash, int8, int4) launches}."""
+    import numpy as np
+    import torch
+
+    from lap_tpu_torch.models.types import CoTObservation
+    from lap_tpu_torch.policies.policy import Policy, _stack_batch
+
+    depth = len(model.llm.layers)
+    requests = [make_request(200 + i, config) for i in range(QUANT_FLOW_REQUESTS)]
+    obs = CoTObservation.from_dict(_stack_batch([requests[0]]), device=device)
+    noise = torch.randn((1, config.action_horizon, config.action_dim),
+                        generator=torch.Generator(device=device).manual_seed(8), device=device)
+    model.quantize_(None)
+    exact = model.sample_actions(obs, noise=noise)
+    totals = {}
+    for mode in ("int8", "int4"):
+        model.quantize_(mode)
+        policy = Policy(model, num_steps=10, seed=0)
+        policy.infer(requests[0])  # first use of the kernels at these shapes
+        expected = (depth, 2 * depth * 10 if mode == "int8" else 0, 2 * depth * 10 if mode == "int4" else 0)
+        reset_launch_counters()
+        latencies, per_request = [], []
+        for req in requests:
+            before = serving_launches()
+            out = policy.infer(req)
+            per_request.append(tuple(a - b for a, b in zip(serving_launches(), before)))
+            latencies.append(out["policy_timing"]["infer_ms"])
+            if out["actions"].shape != (16, 7) or not np.isfinite(out["actions"]).all():
+                raise AssertionError(f"{mode} flow: bad actions")
+        totals[mode] = serving_launches()
+        if any(c != expected for c in per_request):
+            raise AssertionError(f"{mode} flow: expected {expected} (flash, int8, int4) launches, got {per_request}")
+        got = model.sample_actions(obs, noise=noise)
+        rel = ((got - exact).norm() / exact.norm()).item()
+        p50, p90 = percentiles(latencies)
+        log(f"quant flow {mode}: (flash, int8, int4) launches per request {expected} over {len(requests)} "
+            f"requests; infer p50_ms={p50:.3f} p90_ms={p90:.3f} all_ms={[round(x, 3) for x in latencies]}; "
+            f"actions vs bf16 rel_err={rel:.3e} (information)")
+    model.quantize_(None)
+    return totals
+
+
+def run_ar(model, config, device):
+    """AR serving through ``ARPolicy`` at batch 1, ``AR_STEPS`` tokens per
+    request, in bf16, int8 and int4, with exact launch counts per request.
+    Returns {mode: (flash, int8, int4) launches}."""
+    import numpy as np
+    import torch
+
+    from lap_tpu_torch.models.types import CoTObservation
+    from lap_tpu_torch.policies.policy import ARPolicy, _stack_batch
+
+    depth = len(model.llm.layers)
+    per_quant = (4 * depth + 1) * AR_STEPS + 1
+    vocab = model.llm.embedder.input_embedding.shape[0]
+    requests = [make_request(300 + i, config) for i in range(AR_REQUESTS)]
+    obs = CoTObservation.from_dict(_stack_batch([requests[0]]), device=device)
+    totals = {}
+    for mode in ("bf16", "int8", "int4"):
+        model.quantize_(None if mode == "bf16" else mode)
+        policy = ARPolicy(model, max_decoding_steps=AR_STEPS, stop_on_eos=False, seed=0)
+        policy.infer(requests[0])  # first use of the kernels at these shapes
+        expected = (depth, per_quant if mode == "int8" else 0, per_quant if mode == "int4" else 0)
+        reset_launch_counters()
+        latencies, per_request = [], []
+        for req in requests:
+            before = serving_launches()
+            out = policy.infer(req)
+            per_request.append(tuple(a - b for a, b in zip(serving_launches(), before)))
+            latencies.append(out["policy_timing"]["infer_ms"])
+            tokens = out["tokens"]
+            if tokens.shape != (1, AR_STEPS) or tokens.dtype != np.int32 or not (
+                    (tokens >= 0) & (tokens < vocab)).all():
+                raise AssertionError(f"{mode} AR: bad tokens {tokens.shape} {tokens.dtype}")
+        totals[mode] = serving_launches()
+        if any(c != expected for c in per_request):
+            raise AssertionError(f"{mode} AR: expected {expected} (flash, int8, int4) launches, got {per_request}")
+        prefill = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            model.ar_prefill(obs, AR_STEPS)
+            torch.cuda.synchronize()
+            prefill.append((time.monotonic() - t0) * 1e3)
+        p50, p90 = percentiles(latencies)
+        prefill_ms = statistics.median(prefill)
+        log(f"AR {mode}: {AR_STEPS} tokens per request at batch 1, (flash, int8, int4) launches per request "
+            f"{expected} over {len(requests)} requests; infer p50_ms={p50:.3f} p90_ms={p90:.3f} "
+            f"ms_per_token(p50/{AR_STEPS})={p50 / AR_STEPS:.3f} prefill_ms={prefill_ms:.3f} "
+            f"decode_ms_per_token={(p50 - prefill_ms) / AR_STEPS:.3f} "
+            f"all_ms={[round(x, 3) for x in latencies]} tokens[0][:8]={tokens[0, :8].tolist()}")
+        profile_one_request(policy, requests[0], what=f"AR request ({mode}, {AR_STEPS} tokens)", tokens=AR_STEPS)
+    model.quantize_(None)
+    return totals
+
+
+def ar_logits(model, obs, forced=None):
+    """Logits of the prefill and of ``AR_FORCED_STEPS`` steps [1, S + 1, V]
+    (f32) and the tokens fed: greedy, or ``forced``."""
+    import torch
+
+    state = model.ar_prefill(obs, AR_FORCED_STEPS)
+    logits, tokens = [state.logits.float()], []
+    for i in range(AR_FORCED_STEPS):
+        token = state.logits.argmax(dim=-1).to(torch.int32) if forced is None else forced[:, i : i + 1]
+        tokens.append(token)
+        logits.append(model.ar_step(state, token).float())
+    return torch.cat(tokens, dim=1), torch.cat(logits, dim=1)
+
+
+def plain_in_float64(name):
+    """The plain version of a dequant matmul with its sum taken in float64:
+    another correct rounding of the same function, to show how far the AR
+    path moves on rounding alone."""
+    import torch
+
+    from lap_tpu_torch.ops.int4_matmul import unpack_nibbles
+
+    def int8(x, w, scale):
+        return ((x.double() @ w.double()) * scale.double()).to(x.dtype)
+
+    def int4(x, packed, scale):
+        lo, hi = unpack_nibbles(packed)
+        group = 2 * packed.shape[0] // scale.shape[0]
+        w = torch.cat([lo, hi]).double() * torch.repeat_interleave(scale.double(), group, dim=0)
+        return (x.double() @ w).to(x.dtype)
+
+    return int8 if name == "int8_matmul" else int4
+
+
+def check_ar_kernels_against_plain(model, config, device):
+    """Quantized AR decode with the dequant kernels against the same model
+    with the plain versions in their place, fed the same tokens, beside the
+    plain versions against themselves with float64 sums (the path's rounding
+    floor); every dequant call of the kernel pass against the plain version
+    on the same input; and the first logits against the bf16 model's
+    (information: the weight rounding)."""
+    import torch
+
+    from lap_tpu_torch.models.types import CoTObservation
+    from lap_tpu_torch.policies.policy import _stack_batch
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    obs = CoTObservation.from_dict(_stack_batch([make_request(400, config)]), device=device)
+    model.quantize_(None)
+    _, exact = ar_logits(model, obs)
+    failures = []
+    for name, module, _, kernel, plain in quant_kinds():
+        mode = name.split("_")[0]
+        model.quantize_(mode)
+        calls = []
+
+        def checked(x, w, scale, kernel=kernel, plain=plain, calls=calls):
+            got = kernel(x, w, scale)
+            ref = plain(x.float(), w, scale)
+            bound = QUANT_RTOL * ref.abs() + QUANT_ATOL_OF_MAX * ref.abs().max()
+            calls.append(((got.float() - ref).abs() / bound).max().item())
+            return got
+
+        reset_launch_counters()
+        runs = {}
+        for label, fn in (("kernel", checked), ("plain", plain), ("plain_f64", plain_in_float64(name))):
+            setattr(module, name, fn)  # the model's calls find this version in the kernel's place
+            try:
+                tokens, runs[label] = ar_logits(model, obs, forced=runs.get("tokens"))
+                runs.setdefault("tokens", tokens)
+            finally:
+                setattr(module, name, kernel)
+            if label == "kernel":
+                launched = module.launches
+        if launched != len(calls) or launched == 0 or module.launches != launched:
+            raise AssertionError(f"{mode}: {launched} kernel launches for {len(calls)} checked calls, "
+                                 f"{module.launches - launched} in the plain passes")
+        steps = runs["kernel"].shape[1]
+        err, floor = rel(runs["kernel"], runs["plain"]), rel(runs["plain"], runs["plain_f64"])
+        log(f"path: AR {mode} logits with kernels vs plain versions, teacher-forced over {AR_FORCED_STEPS} steps: "
+            f"rel_l2={err:.3e} per step {[round(rel(runs['kernel'][:, i], runs['plain'][:, i]), 5) for i in range(steps)]}; "
+            f"floor (plain, f32 vs f64 sums) rel_l2={floor:.3e} per step "
+            f"{[round(rel(runs['plain'][:, i], runs['plain_f64'][:, i]), 5) for i in range(steps)]}; "
+            f"pass if <= {AR_FLOOR_FACTOR} x floor (target {AR_KERNEL_REL_TOL}: "
+            f"{'met' if err <= AR_KERNEL_REL_TOL else 'not met'}); {len(calls)} dequant calls each against the "
+            f"plain version on its input, worst err/bound={max(calls):.3f}; first logits {mode} vs bf16 "
+            f"rel_l2={rel(runs['kernel'][:, 0], exact[:, 0]):.3e} (information)")
+        if not (torch.isfinite(runs["kernel"]).all() and err <= AR_FLOOR_FACTOR * floor and max(calls) <= 1.0):
+            failures.append(mode)
+    model.quantize_(None)
+    if failures:
+        raise AssertionError(f"AR logits with the kernels differ from the plain versions beyond the floor: {failures}")
+
+
+def check_small_ar_reference(device) -> None:
+    """The dummy-size model's AR decode in f32 on the card against the same
+    weights on the CPU (the path the CPU tests hold against the JAX package)."""
+    import numpy as np
+    import torch
+
+    from lap_tpu_torch.models.lap_model import LAP, LAPConfig
+    from lap_tpu_torch.models.types import CoTObservation
+
+    config = LAPConfig(
+        dtype="float32", paligemma_variant="dummy", action_expert_variant="dummy",
+        siglip_variant="dummy", action_horizon=4, max_token_len=16,
+        image_resolution=(28, 28), enable_action_training=True,
+    )
+    cpu = LAP(config, device="cpu", init_seed=0)
+    with torch.no_grad():
+        cpu.llm.embedder.input_embedding.mul_(100.0)
+    gpu = LAP(config, device=device, init_seed=None)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(9)
+    batch = {
+        "image": {k: rng.integers(0, 256, (2, 28, 28, 3), dtype=np.uint8) for k in config.image_keys},
+        "state": rng.standard_normal((2, 7)).astype(np.float32),
+        "tokenized_prompt": rng.integers(0, 257_152, (2, 16)).astype(np.int32),
+        "tokenized_prompt_mask": np.arange(16)[None, :] < np.array([[12], [5]]),
+    }
+    kw = dict(max_decoding_steps=SMALL_AR_STEPS, stop_on_eos=False)
+    ref = cpu.sample_tokens(CoTObservation.from_dict(batch, device="cpu"), **kw)
+    got = gpu.sample_tokens(CoTObservation.from_dict(batch, device=device), **kw).cpu()
+    ref_logits = cpu.ar_prefill(CoTObservation.from_dict(batch, device="cpu"), 1).logits
+    got_logits = gpu.ar_prefill(CoTObservation.from_dict(batch, device=device), 1).logits.cpu()
+    err = ((got_logits - ref_logits).abs().max() / ref_logits.abs().max()).item()
+    log(f"small reference: dummy LAP f32 AR decode card vs CPU tokens equal={torch.equal(got, ref)} "
+        f"first logits max_abs_err/max={err:.3e} (tol {SMALL_REF_TOL}); tokens {got.tolist()}")
+    if not (torch.equal(got, ref) and err <= SMALL_REF_TOL):
+        raise AssertionError("card and CPU disagree on the dummy model's AR decode")
 
 
 # ---------------------------------------------------------------------------
@@ -725,7 +1158,7 @@ def profile_one_step(trainer, batch) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         trainer.run(batch, 1)
         torch.cuda.synchronize()
@@ -870,9 +1303,11 @@ def main() -> int:
 
     from lap_tpu_torch import cuda_build
     from lap_tpu_torch.ops import flash_attention as fa
+    from lap_tpu_torch.ops import int4_matmul as i4
+    from lap_tpu_torch.ops import int8_matmul as i8
 
     t0 = time.monotonic()
-    sources = (fa.SOURCE, fa.BWD_SOURCE)
+    sources = (fa.SOURCE, fa.BWD_SOURCE, i8.SOURCE, i4.SOURCE)
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:  # nvcc runs as a subprocess
         list(pool.map(cuda_build.build, sources))
     log(f"build: {', '.join(sources)} in {time.monotonic() - t0:.1f} s (one nvcc each, in parallel)")
@@ -884,22 +1319,33 @@ def main() -> int:
     max_err = check_flash_kernel(device)
     bwd_err = check_flash_backward(device)
     timing = time_flash_kernel(device)
+    quant_err = check_quant_kernels(device)
+    quant_timing = time_quant_kernels(device)
     check_small_reference(device)
+    check_small_ar_reference(device)
     check_small_train_reference(device)
-    serving_launches = run_policy(device)
+
+    model, config = build_serving_model(device)
+    flow_launches = run_policy(model, config, device)
+    quant_flow = run_quant_flow(model, config, device)
+    ar = run_ar(model, config, device)
+    check_ar_kernels_against_plain(model, config, device)
+    del model
+    gc.collect()
     torch.cuda.empty_cache()
     train_launches = run_training(device)
     torch.cuda.empty_cache()
     bwd_timing = time_flash_backward(device, TRAIN_BATCH)
-    log_unported_kernel_bounds()
 
     csrc = "lap_tpu_torch/csrc/"
     kernels = [
         dict(
             name="flash_attention_fwd", route="cuda", source=csrc + fa.SOURCE,
             replaces="lap_tpu/ops/flash_attention.py:53",
-            launches=serving_launches + train_launches["fwd"],
-            launches_serving=serving_launches, launches_training=train_launches["fwd"],
+            launches=flow_launches + sum(c[0] for c in quant_flow.values()) + sum(c[0] for c in ar.values())
+            + train_launches["fwd"],
+            launches_flow=flow_launches, launches_quant_flow=sum(c[0] for c in quant_flow.values()),
+            launches_ar=sum(c[0] for c in ar.values()), launches_training=train_launches["fwd"],
             max_abs_err=max(max_err, bwd_err["fwd"]), **timing,
         ),
         dict(
@@ -913,6 +1359,17 @@ def main() -> int:
             max_abs_err=bwd_err["dkv"], **bwd_timing["dkv"],
         ),
     ]
+    json_shape, json_rows = QUANT_JSON_SHAPE
+    k, n = {name: (k, n) for name, k, n in QUANT_SHAPES}[json_shape]
+    for index, (name, replaces) in enumerate((("int8_matmul", "lap_tpu/ops/int8_matmul.py:56"),
+                                              ("int4_matmul", "lap_tpu/ops/int4_matmul.py:93"))):
+        kernels.append(dict(
+            name=name, route="cuda", source=csrc + (i8.SOURCE, i4.SOURCE)[index], replaces=replaces,
+            launches=quant_flow[name[:4]][1 + index] + ar[name[:4]][1 + index],
+            launches_quant_flow=quant_flow[name[:4]][1 + index], launches_ar=ar[name[:4]][1 + index],
+            max_abs_err=quant_err[name], timed_at=f"M={json_rows} K={k} N={n} ({json_shape})",
+            **quant_timing[name][QUANT_JSON_SHAPE],
+        ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({

@@ -5,7 +5,9 @@ numpy arrays. Its traps, each handled here:
 
 - expert 1's modules carry the ``_1`` suffix (``q_einsum_1``, ``mlp_1``, ...);
 - every leaf under ``llm/layers`` and ``img/Transformer_encoderblock`` has a
-  leading depth axis (``nn.scan``);
+  leading depth axis (``nn.scan``); a ``scan_layers=False`` model (the JAX
+  package's quantized serving layout) keeps the Gemma layers as
+  ``llm/layers_{i}`` subtrees instead;
 - flax ``Dense`` kernels are [in, out], torch ``Linear`` weights [out, in];
 - SigLIP's ``DenseGeneral`` kernels are [D, N, H] (query/key/value) and
   [N, H, D] (out);
@@ -14,6 +16,10 @@ numpy arrays. Its traps, each handled here:
 
 ``from_jax_params`` fails on any leaf it does not consume;
 ``load_jax_params`` also fails on any port parameter it does not fill.
+``from_jax_quant``/``load_jax_quant`` carry the "quant" collection of a
+quantized JAX model (``layers_{i}/attn/q_einsum/w_i8``,
+``.../mlp/gating_w_i4``, ``embedder/decode_w_i8``, the scales) into the
+port's quantized buffers with the same checks.
 
 The same translation carries any tree laid out like the params: a gradient
 tree, Adam moments, an EMA copy. ``None`` leaves (the frozen gaps of a
@@ -29,6 +35,8 @@ import torch
 from torch import nn
 
 _EXPERT = re.compile(r"^(?P<name>[a-z_]+?)(?:_(?P<expert>\d+))?$")
+_UNSCANNED_LAYER = re.compile(r"^layers_(\d+)$")
+_QUANT_LEAF = re.compile(r"^(?P<prefix>(gating_|linear_|decode_)?)(?P<leaf>w_i8|w_i4|scale)$")
 _GEMMA_EINSUMS = ("q_einsum", "kv_einsum", "qkv_einsum", "attn_vec_einsum")
 
 
@@ -116,6 +124,9 @@ def _translate(key: str, value: np.ndarray) -> list[tuple[str, np.ndarray]]:
             return [("llm.embedder.input_embedding", value)]
         if parts[1] == "layers":
             return [_llm_layer(parts[2:], value[i], i) for i in range(value.shape[0])]
+        layer = _UNSCANNED_LAYER.match(parts[1])
+        if layer:
+            return [_llm_layer(parts[2:], value, int(layer[1]))]
         name, expert = _split_expert(parts[1])
         if name == "final_norm":
             return [_norm(f"llm.final_norm.{expert}", parts[2:], value)]
@@ -164,6 +175,76 @@ def from_jax_params(tree: dict) -> dict[str, torch.Tensor]:
     if unused:
         raise ValueError(f"JAX params not consumed by the port: {sorted(unused)}")
     return out
+
+
+def _translate_quant(key: str) -> str:
+    """A leaf of the JAX "quant" collection -> the port's buffer name."""
+    parts = key.split("/")
+    if parts[0] != "llm" or len(parts) < 3 or not _QUANT_LEAF.match(parts[-1]):
+        raise KeyError(key)
+    if parts[1:-1] == ["embedder"] and parts[-1].startswith("decode_"):
+        return f"llm.embedder.{parts[-1]}"
+    layer = _UNSCANNED_LAYER.match(parts[1])
+    if layer is None:
+        raise KeyError(key)
+    i = int(layer[1])
+    leaf = _QUANT_LEAF.match(parts[-1])
+    if parts[2] == "attn" and len(parts) == 5 and not leaf["prefix"]:
+        name, expert = _split_expert(parts[3])
+        if name in _GEMMA_EINSUMS:
+            return f"llm.layers.{i}.attn.{name}.{expert}.{parts[-1]}"
+    if len(parts) == 4 and leaf["prefix"] in ("gating_", "linear_"):
+        name, expert = _split_expert(parts[2])
+        if name == "mlp":
+            return f"llm.layers.{i}.mlp.{expert}.{parts[-1]}"
+    raise KeyError(key)
+
+
+def from_jax_quant(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX "quant" collection (nested dicts of numpy arrays) -> the port's
+    buffer names; raises on any leaf it does not consume."""
+    if "quant" in tree and len(tree) == 1:
+        tree = tree["quant"]
+    out, unused = {}, []
+    for key, value in flatten(tree).items():
+        try:
+            out[_translate_quant(key)] = _to_tensor(np.asarray(value))
+        except KeyError:
+            unused.append(key)
+    if unused:
+        raise ValueError(f"JAX quant leaves not consumed by the port: {sorted(unused)}")
+    return out
+
+
+def load_jax_quant(model: nn.Module, tree: dict) -> nn.Module:
+    """Replace the quantized copies of ``model``'s weights by a JAX "quant"
+    collection. The mode (int4 if any weight is nibble-packed, else int8)
+    fixes which buffers the model must get (those ``quantize_`` would make);
+    raises if one is left unfilled, a leaf is left over, or a shape or dtype
+    differs."""
+    from lap_tpu_torch.models.lora import QuantWeights
+
+    state = from_jax_quant(tree)
+    mode = "int4" if any(name.endswith("w_i4") for name in state) else "int8"
+    owners = {}
+    for module_name, module in model.named_modules():
+        if isinstance(module, QuantWeights):
+            for name, spec in module.quant_spec(mode).items():
+                owners[f"{module_name}.{name}"] = (module, name, spec)
+    missing = sorted(set(owners) - set(state))
+    extra = sorted(set(state) - set(owners))
+    if missing or extra:
+        raise ValueError(f"quant bridge mismatch: unfilled {missing}, unexpected {extra}")
+    for full, (_, _, (shape, dtype)) in owners.items():
+        if tuple(state[full].shape) != shape or state[full].dtype != dtype:
+            raise ValueError(f"{full}: {tuple(state[full].shape)} {state[full].dtype} != {shape} {dtype}")
+    for module_name, module in model.named_modules():
+        if isinstance(module, QuantWeights):
+            module.clear_quant_()
+    device = next(model.parameters()).device
+    for full, (module, name, _) in owners.items():
+        module.register_buffer(name, state[full].to(device))
+    return model
 
 
 def load_jax_params(model: nn.Module, tree: dict) -> nn.Module:

@@ -8,6 +8,15 @@ from a conditioning vector), RoPE then ``q *= head_dim**-0.5`` then attention
 at scale 1.0, gated residuals, the embedding scaled by ``sqrt(D)`` rounded to
 the activation dtype, and a KV cache ``(idx, k, v)`` stacked over layers.
 
+Serving: the blocks are per layer (JAX's ``scan_layers=False``), so each
+layer's weights are real tensors that the dequant kernels can read.
+``quantize_`` gives the Einsums, MLPs and the vocab head (``Embedder.decode``,
+[V, D] relaid out to [D, V]) quantized copies (``lora.py``). Single-token AR
+decode writes each layer's new K/V into the stacked cache in place, at each
+batch row's own index (``update_cache``; JAX rebuilds the arrays), so a
+decode step stacks nothing; the attention of a decode step is the einsum
+path.
+
 Training: ``stop_action_to_vlm_grad`` splits each layer's attention into two
 calls at the expert-0 boundary, the second with detached expert-0 keys and
 values (forward values unchanged); ``remat_policy="nothing_saveable"``
@@ -29,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from lap_tpu_torch.models.lora import Einsum, FeedForward
+from lap_tpu_torch.models.lora import QUANT_MAX_ROWS, Einsum, FeedForward, QuantWeights, quant_matmul
 from lap_tpu_torch.ops.attention import attention
 from lap_tpu_torch.ops.rope import apply_rope
 
@@ -108,7 +117,7 @@ def tied_table_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return x @ table.to(x.dtype).T
 
 
-class Embedder(nn.Module):
+class Embedder(QuantWeights):
     def __init__(self, vocab_size: int, embed_dim: int, *, device=None, dtype=None):
         super().__init__()
         self.embed_dim = embed_dim
@@ -116,12 +125,19 @@ class Embedder(nn.Module):
             torch.empty((vocab_size, embed_dim), device=device, dtype=dtype)
         )
 
+    def quant_targets(self):
+        # The vocab head of AR decode: [V, D] -> [D, V].
+        return [("decode_", self.input_embedding, (1, 0), 1)]
+
     def encode(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.input_embedding[tokens]
         scale = torch.tensor(float(self.embed_dim), dtype=torch.float32).sqrt().to(x.dtype)
         return x * scale.to(x.device)
 
     def decode(self, x: torch.Tensor) -> torch.Tensor:
+        q = self.quantized("decode_")
+        if q is not None and x[..., 0].numel() <= QUANT_MAX_ROWS:
+            return quant_matmul(x, *q, (*x.shape[:-1], self.input_embedding.shape[0]))
         return tied_table_logits(x, self.input_embedding)
 
     def random_init_(self, gen: torch.Generator) -> None:
@@ -137,12 +153,28 @@ def init_cache(k, v, cache_size: int, cache_dtype=None):
     return idx, F.pad(k.to(dtype), pad), F.pad(v.to(dtype), pad)
 
 
+def update_cache(k, v, idx, k_cache, v_cache):
+    """Write one decode step's K/V ([B, 1, K, H]) into the caches at each
+    batch row's own index ``idx`` [B], in place; returns (idx + 1, k_cache,
+    v_cache)."""
+    if k.shape[1] != 1:
+        raise ValueError("KV-cache updates must be single-token")
+    index = idx.long()[:, None, None, None].expand(-1, 1, *k_cache.shape[2:])
+    k_cache.scatter_(1, index, k.to(k_cache.dtype))
+    v_cache.scatter_(1, index, v.to(v_cache.dtype))
+    return idx + 1, k_cache, v_cache
+
+
 def _expert_list(make, n: int) -> nn.ModuleList:
     return nn.ModuleList([make(i) for i in range(n)])
 
 
 class Attention(nn.Module):
     """Joint attention over the concatenated expert sequences."""
+
+    QKV_EQN = "bsd,cndh->cbsnh"
+    Q_EQN = "btd,ndh->btnh"
+    ATTN_VEC_EQN = "btnh,nhd->btd"
 
     def __init__(self, configs: Sequence[Config], *, stop_action_to_vlm_grad: bool = False,
                  cache_dtype=None, attn_impl="auto", device=None, dtype=None):
@@ -160,28 +192,30 @@ class Attention(nn.Module):
         kw = dict(device=device, dtype=dtype)
         n, k, h = cfg0.num_heads, cfg0.num_kv_heads, cfg0.head_dim
         self.fused_qkv = k == n
+        ne, qkv, q_eqn, vec = len(configs), self.QKV_EQN, self.Q_EQN, self.ATTN_VEC_EQN
         if self.fused_qkv:
-            self.qkv_einsum = _expert_list(lambda i: Einsum((3, n, configs[i].width, h), configs[i].width, **kw), len(configs))
+            self.qkv_einsum = _expert_list(lambda i: Einsum((3, n, configs[i].width, h), qkv, configs[i].width, **kw), ne)
         else:
-            self.q_einsum = _expert_list(lambda i: Einsum((n, configs[i].width, h), configs[i].width, **kw), len(configs))
-            self.kv_einsum = _expert_list(lambda i: Einsum((2, k, configs[i].width, h), configs[i].width, **kw), len(configs))
-        self.attn_vec_einsum = _expert_list(lambda i: Einsum((n, h, configs[i].width), n * h, **kw), len(configs))
+            self.q_einsum = _expert_list(lambda i: Einsum((n, configs[i].width, h), q_eqn, configs[i].width, **kw), ne)
+            self.kv_einsum = _expert_list(lambda i: Einsum((2, k, configs[i].width, h), qkv, configs[i].width, **kw), ne)
+        self.attn_vec_einsum = _expert_list(lambda i: Einsum((n, h, configs[i].width), vec, n * h, **kw), ne)
 
     def forward(self, xs, positions, attn_mask, kv_cache, want_cache: bool = True):
         """Three call shapes: a fresh joint pass over the live experts
         (``kv_cache is None``: the training step with both experts, or the
         serving prefill with expert 0 alone), the cached suffix step
         (``kv_cache`` given, expert 0 absent), and single-token AR decode
-        (``kv_cache`` given, expert 0 present; not ported)."""
+        (``kv_cache`` given, expert 0 present: the cache is written in
+        place)."""
         qs, ks, vs = [], [], []
         for i, x in enumerate(xs):
             if x is None:
                 continue
             if self.fused_qkv:
-                q, k, v = self.qkv_einsum[i]("bsd,cndh->cbsnh", x).unbind(0)
+                q, k, v = self.qkv_einsum[i](x).unbind(0)
             else:
-                q = self.q_einsum[i]("btd,ndh->btnh", x)
-                k, v = self.kv_einsum[i]("bsd,cndh->cbsnh", x).unbind(0)
+                q = self.q_einsum[i](x)
+                k, v = self.kv_einsum[i](x).unbind(0)
             qs.append(q)
             ks.append(k)
             vs.append(v)
@@ -193,9 +227,9 @@ class Attention(nn.Module):
         q = q * self.configs[0].head_dim ** -0.5
         k = apply_rope(k, positions)
 
-        if kv_cache is not None:
-            if xs[0] is not None:
-                raise NotImplementedError("single-token AR decode is not ported yet")
+        if kv_cache is not None and xs[0] is not None:
+            idx, k, v = update_cache(k, v, *kv_cache)
+        elif kv_cache is not None:
             # Suffix step (flow-matching action expert): the fresh suffix K/V
             # follow the cached prefix.
             idx, cache_k, cache_v = kv_cache
@@ -234,7 +268,7 @@ class Attention(nn.Module):
                 out.append(None)
                 continue
             end = start + x.shape[1]
-            out.append(self.attn_vec_einsum[i]("btnh,nhd->btd", encoded[:, start:end]))
+            out.append(self.attn_vec_einsum[i](encoded[:, start:end]))
             start = end
         return out, ((idx, k, v) if want_cache else None)
 
@@ -314,6 +348,13 @@ class Module(nn.Module):
         for block in self.layers:
             block.attn.attn_impl = impl
 
+    def quantize_(self, mode: str | None) -> None:
+        """Quantized copies of the Einsum, MLP and vocab-head weights for
+        decode-shaped calls (``lora.quantize_``); ``None`` removes them."""
+        for m in self.modules():
+            if isinstance(m, QuantWeights):
+                m.quantize_(mode)
+
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embedder.encode(tokens).to(self.embed_dtype)
 
@@ -330,11 +371,14 @@ class Module(nn.Module):
             mask: [B, T_total, S] boolean attention mask.
             adarms_cond: per-expert [B, D_i] adaRMS conditioning, or None.
             kv_cache: stacked (idx [L, B], k [L, B, S, K, H], v) or None.
+                A single-token AR step (expert 0 present) writes k and v
+                in place.
             want_cache: False in training: no cache is built or stacked.
 
         Returns:
             (per-expert final-normed outputs, stacked kv_cache or None)
         """
+        in_place = kv_cache is not None and embedded[0] is not None
         embedded = [None if e is None else e.to(self.embed_dtype) for e in embedded]
         if adarms_cond is None:
             adarms_cond = [None] * len(self.configs)
@@ -349,7 +393,12 @@ class Module(nn.Module):
             else:
                 embedded, layer_out = block(*args)
             caches.append(layer_out)
-        kv_cache = tuple(torch.stack(parts) for parts in zip(*caches)) if want_cache else None
+        if not want_cache:
+            kv_cache = None
+        elif in_place:
+            kv_cache = (torch.stack([c[0] for c in caches]), kv_cache[1], kv_cache[2])
+        else:
+            kv_cache = tuple(torch.stack(parts) for parts in zip(*caches))
         out = [
             None if e is None else norm(e, a)[0]
             for norm, e, a in zip(self.final_norm, embedded, adarms_cond, strict=True)

@@ -1,9 +1,15 @@
-"""LAP flow-matching policy model (port of ``lap_tpu/models/lap_model.py``).
+"""LAP flow-matching and language-action policy model (port of
+``lap_tpu/models/lap_model.py``).
 
 SigLIP + a two-expert Gemma (the VLM and the action expert) with pi0.5
 adaRMS time conditioning. Ported: inference by flow matching
 (``embed_prefix``, ``embed_suffix``, ``sample_actions``: prefix prefill, then
-Euler steps of the action expert against the KV cache) and the training loss
+Euler steps of the action expert against the KV cache), autoregressive
+language-action decode (``sample_tokens``: the prefix right-aligned by
+``left_to_right_align``, one prefill of the VLM, then single-token steps
+against the cache, greedy or by temperature), quantized serving
+(``quantize_``: int8/int4 copies of the decode weights beside the bf16 ones,
+used by calls of at most ``lora.QUANT_MAX_ROWS`` rows), the training loss
 (``compute_loss``: one joint pass of both experts, the shifted language CE
 over the language-action tokens plus the flow-matching MSE, with the VQA /
 prediction / sample-mask mixing), and the freeze filters.
@@ -13,8 +19,12 @@ Numerics held from JAX: ``action_in_proj``, the time MLP and
 compute in the promoted type, f32 on f32 inputs even with bf16 weights; the
 Euler loop accumulates time in f32; the CE takes its log-softmax in f32 and
 the action loss is f32. Where JAX draws from split keys (flow noise and time,
-augmentation), the values are arguments, drawn from a ``torch.Generator``
-when not given.
+augmentation, AR sampling), the values are arguments, drawn from a
+``torch.Generator`` when not given. Temperature sampling takes the argmax of
+``logits / T`` plus Gumbel noise, as ``jax.random.categorical`` does, from
+the generator's own bits. Rows that emitted EOS write 0; with
+``stop_on_eos`` the loop ends once every row has, which the host reads once
+per token (one device sync per decode step).
 """
 
 from __future__ import annotations
@@ -87,6 +97,10 @@ class LAPConfig:
     # Block rematerialisation in training ("nothing_saveable" / "none").
     remat_policy: str = "nothing_saveable"
     image_resolution: tuple[int, int] = IMAGE_RESOLUTION
+    # Weight-only quantized serving ("int8" / "int4" / None): a model built
+    # with random weights quantizes at once; one built empty for a weight
+    # load quantizes with ``LAP.quantize_`` after it.
+    quant: str | None = None
 
     @property
     def image_keys(self) -> tuple[str, ...]:
@@ -117,6 +131,49 @@ def posemb_sincos(pos: torch.Tensor, embedding_dim: int, min_period: float, max_
     return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
+def left_to_right_align(x, input_mask, attn_mask):
+    """Right-align the valid tokens (padding moves to the left); the valid
+    tokens must be left-aligned. Padded keys and queries stay masked."""
+    size = x.shape[1]
+    shift = size - input_mask.sum(dim=1)
+    idx = (torch.arange(size, device=x.device)[None, :] - shift[:, None]) % size
+    b = x.shape[0]
+    x_al = torch.gather(x, 1, idx[..., None].expand(b, size, x.shape[-1]))
+    mask_al = torch.gather(input_mask, 1, idx)
+    attn_al = torch.gather(attn_mask, 1, idx[:, :, None].expand(b, size, attn_mask.shape[-1]))
+    attn_al = torch.gather(attn_al, 2, idx[:, None, :].expand(b, size, size))
+    attn_al = attn_al & mask_al[:, None, :] & mask_al[:, :, None]
+    return x_al, mask_al, attn_al
+
+
+def put_along_last_axis(arr, idx, vals):
+    """Write ``vals`` into ``arr`` at last-axis positions ``idx``."""
+    iota = torch.arange(arr.shape[-1], device=arr.device)
+    return torch.where(iota == idx, vals.to(arr.dtype), arr)
+
+
+@dataclasses.dataclass
+class ARState:
+    """The state of one AR decode between steps: the stacked KV cache, the
+    logits of the last position [B, 1, V], and where each row's prefix lies
+    in the right-aligned prefill."""
+
+    kv_cache: tuple
+    logits: torch.Tensor
+    prefill_len: torch.Tensor
+    prefix_start: torch.Tensor
+    prefill_size: int
+    step: int = 0
+
+
+def _pick_token(logits: torch.Tensor, temperature: float, generator: torch.Generator | None) -> torch.Tensor:
+    """[B, 1] int32: argmax, or a categorical draw at ``temperature``."""
+    if temperature > 0.0:
+        gumbel = -torch.empty(logits.shape, device=logits.device).exponential_(generator=generator).log()
+        return (logits.float() / max(temperature, 1e-6) + gumbel).argmax(dim=-1).to(torch.int32)
+    return logits.argmax(dim=-1).to(torch.int32)
+
+
 def _dense_promoted(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """A flax ``Dense`` without ``dtype``: computes in the promoted type."""
     dtype = torch.promote_types(x.dtype, layer.weight.dtype)
@@ -138,6 +195,7 @@ class LAP(nn.Module):
     # logsumexp and the label gather run per chunk and are recomputed in the
     # backward pass.
     CE_CHUNK: int = 256
+    EOS_TOKEN: int = 1
 
     def __init__(self, config: LAPConfig, *, device=None, init_seed: int | None = 0,
                  param_dtype: torch.dtype | None = None):
@@ -178,6 +236,8 @@ class LAP(nn.Module):
         self.to_empty(device=device)
         if init_seed is not None:
             random_init_(self, init_seed)
+            if config.quant is not None:
+                self.quantize_(config.quant)
 
     @property
     def device(self) -> torch.device:
@@ -186,6 +246,12 @@ class LAP(nn.Module):
     def set_attn_impl(self, impl: str) -> None:
         self.img.set_attn_impl(impl)
         self.llm.set_attn_impl(impl)
+
+    def quantize_(self, mode: str | None) -> None:
+        """int8/int4 copies of the decode weights from the current (bf16)
+        weights, which stay for the prefill; ``None`` removes the copies.
+        The counterpart of the JAX package's "quant" collection."""
+        self.llm.quantize_(mode)
 
     # ------------------------------------------------------------------
 
@@ -536,7 +602,8 @@ class LAP(nn.Module):
             full_mask = torch.cat([prefix_attn, suffix_attn], dim=-1)
             pos = prefix_len[:, None] + torch.cumsum(suffix_mask, dim=-1) - 1
             (_, suffix_out), _ = self.llm(
-                [None, suffix_tokens], pos, full_mask, [None, adarms_cond], kv_cache=kv_cache
+                [None, suffix_tokens], pos, full_mask, [None, adarms_cond], kv_cache=kv_cache,
+                want_cache=False,
             )
             v_t = _dense_promoted(
                 self.action_out_proj, suffix_out[:, -cfg.action_horizon :].to(torch.float32)
@@ -544,6 +611,70 @@ class LAP(nn.Module):
             x_t = x_t + float(dt) * v_t
             time = np.float32(time + dt)  # f32 accumulation, as in JAX
         return x_t
+
+    @torch.inference_mode()
+    def ar_prefill(self, observation: CoTObservation, max_decoding_steps: int) -> ARState:
+        """Right-align the prefix and run it through the VLM alone, with a
+        cache of ``max_decoding_steps`` free slots; the state holds the
+        logits of the last prefix position."""
+        cfg = self.config
+        observation = preprocess_observation(
+            observation, image_keys=list(observation.images.keys()), image_resolution=cfg.image_resolution
+        )
+        prefix_tokens, prefix_mask, prefix_ar_mask = self.embed_prefix(observation)
+        prefix_attn_mask = make_attn_mask(prefix_mask, prefix_ar_mask)
+        prefix_tokens, prefix_mask, prefix_attn_mask = left_to_right_align(
+            prefix_tokens, prefix_mask, prefix_attn_mask
+        )
+        prefill_size = prefix_tokens.shape[1]
+        prefill_len = prefix_mask.sum(dim=-1)
+        prefix_attn_mask = F.pad(prefix_attn_mask, (0, max_decoding_steps))
+        positions = torch.cumsum(prefix_mask, dim=-1) - 1
+        (pre_logits, _), kv_cache = self.llm([prefix_tokens, None], positions, prefix_attn_mask, [None, None])
+        return ARState(
+            kv_cache=kv_cache,
+            logits=self.llm.decode_logits(pre_logits[:, -1:]),
+            prefill_len=prefill_len,
+            prefix_start=prefill_size - prefill_len,
+            prefill_size=prefill_size,
+        )
+
+    @torch.inference_mode()
+    def ar_step(self, state: ARState, token: torch.Tensor) -> torch.Tensor:
+        """Feed ``token`` [B, 1] at the next position; the cache is written
+        in place. Returns (and keeps in ``state``) the next logits [B, 1, V]."""
+        total = state.kv_cache[1].shape[2]
+        pos = state.prefill_len[:, None] + state.step
+        col = torch.arange(total, device=token.device)[None, None, :]
+        mask = (col >= state.prefix_start[:, None, None]) & (col < state.prefill_size + state.step + 1)
+        (pre_logits, _), state.kv_cache = self.llm(
+            [self.llm.embed(token), None], pos, mask, [None, None], kv_cache=state.kv_cache
+        )
+        state.logits = self.llm.decode_logits(pre_logits)
+        state.step += 1
+        return state.logits
+
+    @torch.inference_mode()
+    def sample_tokens(self, observation: CoTObservation, *, max_decoding_steps: int = 390,
+                      temperature: float = 0.0, stop_on_eos: bool = True, eos_token: int | None = None,
+                      generator: torch.Generator | None = None) -> torch.Tensor:
+        """Right-aligned prefill, then cached AR decode: [B, max_decoding_steps]
+        int32 tokens, 0 after a row's EOS. ``stop_on_eos=False`` runs the
+        whole budget (work independent of what the weights emit)."""
+        eos_token = self.EOS_TOKEN if eos_token is None else eos_token
+        state = self.ar_prefill(observation, max_decoding_steps)
+        b = state.logits.shape[0]
+        out = torch.zeros((b, max_decoding_steps), dtype=torch.int32, device=state.logits.device)
+        eos = torch.zeros((b,), dtype=torch.bool, device=out.device)
+        for step in range(max_decoding_steps):
+            if stop_on_eos and bool(eos.all()):
+                break
+            token = _pick_token(state.logits, temperature, generator)
+            token = torch.where(eos[:, None], 0, token)
+            out = put_along_last_axis(out, step, token)
+            eos = eos | (token[:, 0] == eos_token)
+            self.ar_step(state, token)
+        return out
 
 
 # Freeze filters: predicates over the port's parameter names (as given by

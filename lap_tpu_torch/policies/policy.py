@@ -1,9 +1,11 @@
-"""Inference policy (port of ``lap_tpu/policies/policy.py``): host transforms
-around ``LAP.sample_actions``, with per-request timing.
+"""Inference policies (port of ``lap_tpu/policies/policy.py``): host
+transforms around ``LAP.sample_actions`` (``Policy``) and ``LAP.sample_tokens``
+(``ARPolicy``), with per-request timing.
 
-Each request draws its flow noise from a ``torch.Generator`` on the model's
-device, seeded from ``(seed, request step)``, so concurrent requests never
-reuse noise and a run is reproducible from its seed.
+Each request draws its flow noise or sampling noise from a
+``torch.Generator`` on the model's device, seeded from ``(seed, request
+step)``, so concurrent requests never reuse noise and a run is reproducible
+from its seed.
 """
 
 from __future__ import annotations
@@ -166,3 +168,24 @@ class Policy(_ModelPolicy):
 
     def _row_outputs(self, sampled, i):
         return {"actions": sampled[i]}
+
+
+class ARPolicy(_ModelPolicy):
+    """Autoregressive language-action policy: ``[1, T]`` int32 tokens per
+    request. ``stop_on_eos=False`` decodes the whole budget."""
+
+    def __init__(self, model, *, max_decoding_steps: int = 390, temperature: float = 0.0,
+                 stop_on_eos: bool = True, **kw):
+        super().__init__(model, **kw)
+        self._max_decoding_steps = max_decoding_steps
+        self._temperature = temperature
+        self._stop_on_eos = stop_on_eos
+
+    def _sample(self, observation, generator):
+        return self._model.sample_tokens(
+            observation, max_decoding_steps=self._max_decoding_steps, temperature=self._temperature,
+            stop_on_eos=self._stop_on_eos, generator=generator,
+        )
+
+    def _row_outputs(self, sampled, i):
+        return {"tokens": sampled[i : i + 1]}

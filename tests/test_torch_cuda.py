@@ -6,7 +6,8 @@ version keeps P in f32; both round the output to bf16: tolerance 2 bf16 ulps
 relative plus atol 4e-3 on out, 1e-3 on lse. The backward kernels round P and
 dS to bf16 and the gradients to bf16: 2 bf16 ulps relative plus 2 ulps of the
 gradient's largest entry, against the plain backward on the kernel's own out
-and lse; fully masked rows and all-false key columns exactly zero.
+and lse; fully masked rows and all-false key columns exactly zero. The
+dequant matmuls: see ``QUANT_SHAPES``.
 """
 
 import pytest
@@ -185,3 +186,92 @@ def test_lap_training_pass_goes_through_the_kernels(cuda):
     assert counts["xla"] == (0, 0, 0)
     rel = (counts["auto_grad"] - counts["xla_grad"]).norm() / counts["xla_grad"].norm()
     assert rel.item() < 3e-2
+
+
+# Dequant matmuls: (K, N) of every quantized weight of LAP-3B serving (q and
+# attn_vec; MLP gate/up and down; vocab head; action-expert MLP). The kernel
+# rounds its f32 sum to bf16 once; the plain version is taken in f32: one
+# bf16 rounding plus the summation order, |kernel - plain| <= 8e-3 |plain| +
+# 1e-4 max|plain|.
+QUANT_SHAPES = [(2048, 2048), (2048, 32768), (16384, 2048), (2048, 257152), (1024, 8192), (4096, 1024)]
+
+
+def _assert_dequant_close(got, ref):
+    ref = ref.float()
+    bound = 8e-3 * ref.abs() + 1e-4 * ref.abs().max()
+    assert bool(((got.float() - ref).abs() <= bound).all()), (got.float() - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("k,n", QUANT_SHAPES)
+@pytest.mark.parametrize("m", [1, 16, 100])
+def test_dequant_kernels_match_plain(cuda, m, k, n):
+    from lap_tpu_torch.ops import int4_matmul as i4
+    from lap_tpu_torch.ops import int8_matmul as i8
+
+    g = torch.Generator(device=cuda).manual_seed(k + n + m)
+    w = torch.randn((k, n), generator=g, device=cuda).to(torch.bfloat16) * 0.02
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    for mod, fn, plain, quantize in ((i8, i8.int8_matmul, i8.int8_matmul_plain, i8.quantize_int8),
+                                     (i4, i4.int4_matmul, i4.int4_matmul_plain, i4.quantize_int4)):
+        wq, s = quantize(w)
+        before = mod.launches
+        got = fn(x, wq, s)
+        torch.cuda.synchronize()
+        assert mod.launches == before + 1 and got.dtype == torch.bfloat16 and got.shape == (m, n)
+        _assert_dequant_close(got, plain(x.float(), wq, s))
+        del wq, s
+
+
+def test_dequant_kernels_are_deterministic_and_raise_on_what_they_cannot_take(cuda):
+    from lap_tpu_torch.ops import int4_matmul as i4
+    from lap_tpu_torch.ops import int8_matmul as i8
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn((2048, 2048), generator=g, device=cuda)
+    x = torch.randn((16, 2048), generator=g, device=cuda).to(torch.bfloat16)
+    w8, w4 = i8.quantize_int8(w), i4.quantize_int4(w)
+    assert torch.equal(i8.int8_matmul(x, *w8), i8.int8_matmul(x, *w8))  # split-K sums in a fixed order
+    assert torch.equal(i4.int4_matmul(x, *w4), i4.int4_matmul(x, *w4))
+    with pytest.raises(ValueError, match="bfloat16"):
+        i8.int8_matmul(x.float(), *w8)  # f32 activations: raise, never the plain version
+    with pytest.raises(ValueError, match="bfloat16"):
+        i4.int4_matmul(x.float(), *w4)
+    w_odd = torch.randn((192, 256), generator=g, device=cuda)
+    with pytest.raises(ValueError):
+        i8.int8_matmul(x[:, :192], *i8.quantize_int8(w_odd))  # K % 256 != 0
+    with pytest.raises(ValueError):
+        i4.int4_matmul(x[:, :64], *i4.quantize_int4(w_odd[:64], group_size=32))
+
+
+def test_quantized_feed_forward_goes_through_the_kernel(cuda):
+    """The gemma_300m expert MLP quantized to int4: 16 rows take the kernels
+    (2 launches) and agree with the plain versions on the CPU to 1e-2
+    relative L2 (a bf16 rounding of the gates lands on the other side now and
+    then); 208 rows take the exact bf16 product, bit for bit."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from lap_tpu_torch.models import lora
+    from lap_tpu_torch.ops import int4_matmul as i4
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    ff = lora.FeedForward(1024, 4096, device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad():
+        ff.random_init_(g)
+    ff.quantize_("int4")
+    on_cpu = copy.deepcopy(ff).cpu()
+    x = torch.randn((1, 16, 1024), generator=g, device=cuda).to(torch.bfloat16)
+    rows = x.expand(13, 16, 1024)
+    with torch.no_grad():
+        before = i4.launches
+        got = ff(x)
+        assert i4.launches == before + 2
+        ref = on_cpu(x.cpu())
+        exact = ff(rows)
+        assert i4.launches == before + 2
+        w = ff.gating_einsum
+        manual = (F.gelu(rows @ w[0], approximate="tanh") * (rows @ w[1])) @ ff.linear
+    assert torch.equal(exact, manual)
+    rel = ((got.cpu().float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel < 1e-2

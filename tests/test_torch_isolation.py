@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "lap_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 TRAINING_MODULES = ("config", "optimizer", "state", "train", "train_step")
+QUANT_SERVING_MODULES = ("ops.int8_matmul", "ops.int4_matmul", "models.lora", "models.convert", "policies.policy")
 JAX_LIBS = ("jax", "jaxlib", "flax", "optax", "orbax")
 
 
@@ -25,11 +26,13 @@ def test_port_imports_with_jax_blocked():
         "mods = [m.name for m in pkgutil.walk_packages(lap_tpu_torch.__path__, 'lap_tpu_torch.')]; "
         "[importlib.import_module(m) for m in mods]; "
         "assert not any(n == 'lap_tpu' or n.startswith('lap_tpu.') for n in sys.modules), 'lap_tpu imported'; "
-        "print(len(mods))"
+        "print(' '.join(mods))"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 10 + len(TRAINING_MODULES)
+    mods = proc.stdout.split()
+    assert len(mods) >= 12 + len(TRAINING_MODULES)
+    assert {f"lap_tpu_torch.{m}" for m in QUANT_SERVING_MODULES} <= set(mods)
 
 
 def test_training_sources_are_scanned():
@@ -37,6 +40,22 @@ def test_training_sources_are_scanned():
     for name in TRAINING_MODULES:
         assert f"lap_tpu_torch/training/{name}.py" in scanned
     assert "lap_tpu_torch/models/metrics.py" in scanned
+
+
+def test_dequant_wrappers_take_the_plain_versions_only_on_cpu_tensors():
+    from lap_tpu_torch.ops import int4_matmul, int8_matmul
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((3, 512), generator=g).to(torch.bfloat16)
+    w = torch.randn((512, 64), generator=g)
+    before = (int8_matmul.launches, int4_matmul.launches)
+    w8 = int8_matmul.quantize_int8(w)
+    w4 = int4_matmul.quantize_int4(w)
+    assert torch.equal(int8_matmul.int8_matmul(x, *w8), int8_matmul.int8_matmul_plain(x, *w8))
+    assert torch.equal(int4_matmul.int4_matmul(x, *w4), int4_matmul.int4_matmul_plain(x, *w4))
+    assert (int8_matmul.launches, int4_matmul.launches) == before
+    with pytest.raises(ValueError):
+        int8_matmul.int8_matmul(x[:, :100], *w8)
 
 
 @pytest.mark.parametrize("path", sorted((REPO / "lap_tpu_torch" / "csrc").glob("*.cu*")),

@@ -152,8 +152,9 @@ def test_action_loss_gives_expert0_keys_and_values_no_gradient(stop_grad_gemma):
 
 
 def test_stop_gradient_split_leaves_serving_calls_alone(stop_grad_gemma, monkeypatch):
-    """The split needs the joint pass: a prefill (expert 0 alone) and a cached
-    suffix step make one attention call per layer, and AR decode still raises."""
+    """The split needs the joint pass: a prefill (expert 0 alone), a cached
+    suffix step and a single-token AR decode step make one attention call per
+    layer."""
     _, _, pmod = stop_grad_gemma
     prefix, suffix, cond, mask, pos, _, _ = _joint_inputs(54)
     t = torch.from_numpy
@@ -170,8 +171,13 @@ def test_stop_gradient_split_leaves_serving_calls_alone(stop_grad_gemma, monkeyp
         calls.clear()
         pmod([t(prefix), t(suffix)], t(pos), t(mask), [None, t(cond)], want_cache=False)
         assert calls == [p, s] * len(pmod.layers)
-        with pytest.raises(NotImplementedError, match="AR decode"):
-            pmod([t(prefix[:, :1]), None], t(pos[:, :1]), t(mask[:, :1, : p + 1]), [None, None], kv_cache=cache)
+        # AR decode needs a cache with room for the token: a prefill padded by one key.
+        roomy = np.pad(mask[:, :p, :p], ((0, 0), (0, 0), (0, 1)))
+        _, cache = pmod([t(prefix), None], t(pos[:, :p]), t(roomy), [None, None])
+        calls.clear()
+        step_mask = np.ones((prefix.shape[0], 1, p + 1), bool)
+        pmod([t(prefix[:, :1]), None], t(pos[:, :1]), t(step_mask), [None, None], kv_cache=cache)
+        assert calls == [1] * len(pmod.layers)
 
 
 def test_decode_logits_match_jax(stop_grad_gemma):
