@@ -11,18 +11,23 @@ just after. Phases, in order; any failure exits non-zero:
  1. build every CUDA kernel of the paths from the sources in this checkout
     (``lap_tpu_torch/csrc/``, into ``lap_tpu_torch/_build/``), one ``nvcc``
     per source, in parallel;
- 2. hold each kernel (the flash forward, the dQ and the dK/dV backward, the
-    int8 and int4 dequant matmuls) against its plain PyTorch version on the
-    card, on the paths' shapes and edge cases, with the tolerances stated
-    below; the training call is held at the path's batch and with the
-    strides the model gives it (q and the mask are the first 692 rows of the
-    joint 708-row tensors), forward (out, lse) and backward; the dequant
-    matmuls at 1, 16, 100 and 128 rows for every quantized weight shape;
+ 2. hold each kernel (the flash forward; the backward's delta, dQ, dK/dV and
+    GQA group-sum kernels; the int8 and int4 dequant matmuls) against its
+    plain PyTorch version on the card, on the paths' shapes and edge cases,
+    with the tolerances stated below; the training call is held at the
+    path's batch and with the strides the model gives it (q and the mask are
+    the first 692 rows of the joint 708-row tensors), forward (out, lse) and
+    backward, and two backward calls there and at GQA group 4 must give the
+    same bits; the dequant matmuls at 1, 16, 100 and 128 rows for every
+    quantized weight shape; print the backward kernels' registers, spills,
+    resident blocks per SM and waves;
  3. time each kernel, its plain version and one PyTorch library call that
     computes the same function (a yardstick the port never calls), beside the
-    least time the card could take (``bound_ms``); the dequant matmuls by
-    their device time (cold L2), the backward kernels last, at the batch the
-    training path ran with;
+    least time the card could take (``bound_ms``); the dequant matmuls, the
+    delta kernel and the group-sum pass by their device time, the backward
+    last, at the batch the training path ran with: each kernel alone and the
+    whole ``flash_attention_backward`` as the path calls it, beside autograd
+    through ``F.scaled_dot_product_attention``;
  4. run the dummy-size model in f32 on the card and on the CPU with the same
     weights (the CPU path is what the tests hold against the JAX package):
     ``sample_actions``, AR ``sample_tokens``, and one training pass (loss,
@@ -48,9 +53,10 @@ just after. Phases, in order; any failure exits non-zero:
     parameters under bf16 activations, AdamW, EMA, stop-gradient, per-layer
     rematerialisation) from seeded random weights and take optimizer steps on
     the synthetic batch: per step 36 forward (18 layers, run again by the
-    rematerialisation), 18 dQ and 18 dK/dV launches; the loss is finite and
-    falls; step time, peak memory, and one profiled step with its device
-    time summed by kernel family over every kernel;
+    rematerialisation), 18 delta, 18 dQ, 18 dK/dV and, with GQA groups, 18
+    group-sum launches; the loss is finite and falls; step time, peak
+    memory, and one profiled step with its device time summed by kernel
+    family over every kernel;
 11. compare one loss-and-gradient pass with the kernels against one with
     ``attn_impl="xla"`` from the same weights, batch, noise and time, and the
     float32 global gradient norm against a float64 sum over the same
@@ -78,6 +84,7 @@ REPO = Path(__file__).resolve().parent
 
 # H100 SXM published dense peaks (NVIDIA data sheet).
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 # Kernel vs plain version, bf16 inputs. The kernel rounds P to bf16 before
@@ -161,6 +168,8 @@ PROMPT_LEN, PROMPT_VALID = 180, 40
 ACTION_HORIZON = 16
 LANGACT_START = 8  # first language-action slot of the synthetic training prompt
 TRAINING_CASE = "training_step"  # the kernel case with the training path's shape, batch and strides
+# Backward cases run twice to show that two calls give the same bits.
+DETERMINISM_CASES = (TRAINING_CASE, "gqa_group4_h128")
 
 
 _START = time.monotonic()
@@ -376,6 +385,46 @@ def backward_cases(device):
     ]
 
 
+def check_delta(name, out, dout) -> float:
+    """The delta kernel against its plain version: the same f32 products
+    summed in other orders, each side within (H - 1) ulps of sum |dO * O|."""
+    import torch
+
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    delta = fa.flash_attention_delta(out, dout)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_delta_plain(out, dout)
+    h = out.shape[-1]
+    bound = 2 * (h - 1) * 2.0**-24 * (dout.float() * out.float()).abs().sum(-1).transpose(1, 2)
+    err = (delta - ref).abs()
+    log(f"kernel flash_attention_bwd_delta case={name} max_abs_err={err.max().item():.3e} "
+        f"(bound 2 (H - 1) f32 ulps of sum|dO*O|, at least {bound.min().item():.3e})")
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"{name}: delta differs beyond the f32 summation bound")
+    return err.max().item()
+
+
+def check_group_sum(name, shape, generator) -> float:
+    """The group-sum pass against its plain version on random f32 partials of
+    the case's scratch shape: the same additions in the same order, so the
+    same bits."""
+    import torch
+
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    b, s, n, kh, h = shape
+    partial = torch.randn((2, b, s, n, h), generator=generator, device=generator.device)
+    got = fa.flash_attention_group_sum(partial, kh)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_group_sum_plain(partial, kh)
+    err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref, strict=True))
+    log(f"kernel flash_attention_bwd_group_sum case={name} group={n // kh} max_abs_err={err:.3e} (must be 0)")
+    if err != 0.0:
+        raise AssertionError(f"{name}: the group-sum pass differs from its plain version")
+    return err
+
+
 def check_flash_backward(device):
     """dQ, dK, dV of the two backward kernels against the plain backward, on
     the forward kernel's own out and lse, which are held against the plain
@@ -385,7 +434,7 @@ def check_flash_backward(device):
     from lap_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=device).manual_seed(4)
-    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "delta": 0.0, "group_sum": 0.0}
     for name, (b, t, s, n, kh, h), mask in backward_cases(device):
         if name == TRAINING_CASE:
             q = training_queries(b, g, device)
@@ -400,6 +449,15 @@ def check_flash_backward(device):
         grads = fa.flash_attention_backward(q, k, v, mask, out, lse, dout)
         torch.cuda.synchronize()
         worst["fwd"] = max(worst["fwd"], check_forward(name, q, k, v, mask, out, lse))
+        worst["delta"] = max(worst["delta"], check_delta(name, out, dout))
+        if name in DETERMINISM_CASES:
+            again = fa.flash_attention_backward(q, k, v, mask, out, lse, dout)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b_) for a, b_ in zip(grads, again, strict=True)):
+                raise AssertionError(f"{name}: two backward calls gave different bits")
+            log(f"kernel flash_attention_bwd case={name}: two calls give the same bits (dq, dk, dv)")
+        if n > kh:
+            worst["group_sum"] = max(worst["group_sum"], check_group_sum(name, (b, s, n, kh, h), g))
         refs = fa.flash_attention_backward_plain(q, k, v, mask, out, lse, dout)
         dead_rows = ~mask.any(dim=-1)  # [B, T]
         dead_cols = ~mask.any(dim=-2)  # [B, S]
@@ -432,9 +490,35 @@ def check_flash_backward(device):
     return worst
 
 
+def backward_occupancy(batch):
+    """Registers, spills, resident blocks per SM and waves of the dQ and dK/dV
+    kernels at the training shape, from the compiled kernels on this card."""
+    import torch
+
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    b, t, s, n, kh, h = batch, LAP_PREFIX, LAP_PREFIX + ACTION_HORIZON, 8, 1, 256
+    plan = fa.backward_plan(b, t, s, n, kh, h)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    result = {}
+    for name, info in fa.backward_info(h).items():
+        blocks = math.prod(plan[name + "_grid"])
+        waves = blocks / (sms * info["blocks_per_sm"]) if info["blocks_per_sm"] else math.inf
+        result[name] = dict(info, blocks=blocks, waves=waves)
+        log(f"occupancy flash_attention_bwd_{name} H{h}: registers={info['registers']} "
+            f"spill_bytes={info['local_bytes']} smem={info['smem']} blocks_per_sm={info['blocks_per_sm']} "
+            f"grid={plan[name + '_grid']} ({blocks} blocks) waves={waves:.3f} on {sms} SMs")
+    return result
+
+
 def time_flash_backward(device, batch):
-    """Both backward kernels at the training shape, beside their bounds, the
-    plain backward and autograd through ``F.scaled_dot_product_attention``."""
+    """The backward at the training shape: the delta kernel, the dQ kernel and
+    the dK/dV kernel with its group-sum pass each alone (from a given delta;
+    CUDA events, except the delta kernel and the pass: profiler device time),
+    the pass alone, and the whole ``flash_attention_backward`` as the path
+    calls it (the output gradient's copy, delta once, dQ, dK/dV and the pass),
+    beside their bounds, the plain versions and autograd through
+    ``F.scaled_dot_product_attention``."""
     import torch
     import torch.nn.functional as F
 
@@ -446,24 +530,36 @@ def time_flash_backward(device, batch):
     q = training_queries(b, g, device)
     k = torch.randn((b, s, kh, h), generator=g, device=device).to(torch.bfloat16)
     v = torch.randn((b, s, kh, h), generator=g, device=device).to(torch.bfloat16)
-    dout = training_queries(b, g, device)  # the wrapper's copy to a contiguous dO is in each time
+    dout = training_queries(b, g, device)  # a slice of the joint tensor, as on the path
     out, lse = fa.flash_attention_forward(q, k, v, mask)
     scale = h**-0.5
+    dout_c = dout.contiguous()
+    delta = fa.flash_attention_delta(out, dout_c)
+    plan = fa.backward_plan(b, t, s, n, kh, h)
+    partial = torch.randn(plan["scratch_shape"], generator=g, device=device)
 
-    def run(**need):
-        return fa.flash_attention_backward(q, k, v, mask, out, lse, dout, scale=scale, **need)
+    def grads(**need):
+        return fa.flash_attention_backward_kernels(q, k, v, mask, lse, dout_c, delta, scale=scale, **need)
 
-    # Each time includes the wrapper's delta = sum(dO * O), as the path pays it.
-    dq_ms = time_cuda(lambda: run(need_dq=True, need_dkv=False), iters=20)
-    dkv_ms = time_cuda(lambda: run(need_dq=False, need_dkv=True), iters=20)
-    delta_ms = time_cuda(
-        lambda: (dout.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous(), iters=20
+    # delta and the pass take the card less time than the host takes to launch
+    # them: their device time from the profiler, as for the dequant kernels.
+    delta_ms = device_ms_per_call([lambda: fa.flash_attention_delta(out, dout_c)], iters=50)
+    dq_ms = time_cuda(lambda: grads(need_dq=True, need_dkv=False), iters=20)
+    dkv_ms = time_cuda(lambda: grads(need_dq=False, need_dkv=True), iters=20)
+    group_sum_ms = device_ms_per_call([lambda: fa.flash_attention_group_sum(partial, kh)], iters=50)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    pair_ms = time_cuda(
+        lambda: fa.flash_attention_backward(q, k, v, mask, out, lse, dout, scale=scale), iters=20
     )
+    pair_peak_mib = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
     fwd_ms = time_cuda(lambda: fa.flash_attention_forward(q, k, v, mask), iters=20)
     plain_ms = time_cuda(
         lambda: fa.flash_attention_backward_plain(q, k, v, mask, out, lse, dout, scale),
         iters=3, reps=3, warmup=1,
     )
+    delta_plain_ms = time_cuda(lambda: fa.flash_attention_delta_plain(out, dout_c), iters=20)
+    group_sum_plain_ms = time_cuda(lambda: fa.flash_attention_group_sum_plain(partial, kh), iters=20)
     # Yardstick only: autograd through one PyTorch call, dq, dk and dv together.
     qt = q.transpose(1, 2).detach().requires_grad_()
     kt = k.transpose(1, 2).detach().requires_grad_()
@@ -474,33 +570,44 @@ def time_flash_backward(device, batch):
         lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t, retain_graph=True), iters=20
     )
 
+    def bound(flops, peak, nbytes):
+        flops_ms = flops / peak * 1e3
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        return max(flops_ms, bytes_ms), ("operations" if flops_ms >= bytes_ms else "bytes"), flops_ms, bytes_ms
+
     pairs = int(mask.sum())
     row_bytes = 2 * b * n * t * 4  # lse and delta
     in_bytes = 2 * q.numel() * 2 + k.numel() * 2 + v.numel() * 2 + mask.numel() + row_bytes
     results = {}
-    for name, ms, products, out_bytes in (
-        ("dq", dq_ms, 3, q.numel() * 2),
-        ("dkv", dkv_ms, 4, 2 * k.numel() * 2),
+    for name, ms, plain, flops, peak, nbytes in (
+        ("dq", dq_ms, plain_ms, 2 * 3 * n * h * pairs, PEAK_BF16_FLOPS, in_bytes + q.numel() * 2),
+        ("dkv", dkv_ms, plain_ms, 2 * 4 * n * h * pairs, PEAK_BF16_FLOPS, in_bytes + 2 * k.numel() * 2),
+        # delta: dO and O read, [B, N, T] f32 written; f32 products and sums off the tensor cores.
+        ("delta", delta_ms, delta_plain_ms, 2 * q.numel(), PEAK_F32_FLOPS, 2 * q.numel() * 2 + b * n * t * 4),
+        # group sum: the f32 partials read, bf16 dK and dV written; G - 1 adds per output.
+        ("group_sum", group_sum_ms, group_sum_plain_ms, 2 * k.numel() * (n // kh - 1), PEAK_F32_FLOPS,
+         partial.numel() * 4 + 2 * k.numel() * 2),
     ):
-        flops = 2 * products * n * h * pairs
-        flops_ms = flops / PEAK_BF16_FLOPS * 1e3
-        bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
-        results[name] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(flops_ms, bytes_ms),
-            bound_by="operations" if flops_ms >= bytes_ms else "bytes",
-            # The plain backward and the library call each give dq, dk and dv at once.
-            plain_and_library_cover="dq+dkv", batch=b,
-        )
+        bound_ms, bound_by, flops_ms, bytes_ms = bound(flops, peak, nbytes)
+        results[name] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                             batch=b)
         log(
             f"timing flash_attention_bwd_{name} B{b} T{t} S{s} N{n} K{kh} H{h}: kernel_ms={ms:.5f} "
-            f"(of which delta {delta_ms:.5f}) bound_ms={results[name]['bound_ms']:.5f} "
-            f"(flops={flops} -> {flops_ms:.5f} ms, bytes={in_bytes + out_bytes} -> {bytes_ms:.5f} ms)"
+            f"plain_ms={plain:.5f} bound_ms={bound_ms:.5f} (flops={flops} -> {flops_ms:.5f} ms, "
+            f"bytes={nbytes} -> {bytes_ms:.5f} ms)"
         )
+    for name in ("dq", "dkv"):
+        # The plain backward and the library call each give dq, dk and dv at once.
+        results[name].update(library_ms=library_ms, plain_and_library_cover="dq+dkv", pair_ms=pair_ms)
+    results["dkv"]["includes"] = "the group-sum pass"
     log(
-        f"timing flash_attention_bwd B{b}: dq+dkv kernel_ms={dq_ms + dkv_ms:.5f} "
-        f"plain_ms(dq, dk, dv together)={plain_ms:.5f} "
-        f"library_ms(sdpa backward, dq, dk, dv together)={library_ms:.5f} "
-        f"forward kernel at this shape ms={fwd_ms:.5f}"
+        f"timing flash_attention_bwd B{b}: pair as the path calls it (dO copy, delta once, dq, dkv, pass) "
+        f"kernel_ms={pair_ms:.5f} vs library_ms(sdpa backward, dq, dk, dv together)={library_ms:.5f} "
+        f"(ratio {pair_ms / library_ms:.3f}); parts delta {delta_ms:.5f} + dq {dq_ms:.5f} + dkv with pass "
+        f"{dkv_ms:.5f} (pass {group_sum_ms:.5f}) = {delta_ms + dq_ms + dkv_ms:.5f}; "
+        f"plain_ms(dq, dk, dv together)={plain_ms:.5f}; forward kernel at this shape ms={fwd_ms:.5f}; "
+        f"peak memory of one call above its inputs {pair_peak_mib:.1f} MiB "
+        f"(group-sum scratch {partial.numel() * 4 / 2**20:.1f} MiB)"
     )
     return results
 
@@ -726,6 +833,7 @@ def reset_launch_counters() -> None:
     from lap_tpu_torch.ops import flash_attention as fa
 
     fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    fa.launches_bwd_delta = fa.launches_bwd_group_sum = 0
     for _, module, *_ in quant_kinds():
         module.launches = 0
 
@@ -1231,19 +1339,26 @@ def run_training(device):
     config = trainer.config.model
     trainer.run(batch, TRAIN_WARMUP_STEPS - 1)
 
-    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    def counts():
+        return (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv, fa.launches_bwd_delta,
+                fa.launches_bwd_group_sum)
+
+    reset_launch_counters()
     torch.cuda.reset_peak_memory_stats()
     records, per_step = [], []
     for _ in range(TRAIN_STEPS):
-        before = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+        before = counts()
         records += trainer.run(batch, 1)
-        per_step.append(tuple(a - b for a, b in zip((fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv), before)))
-    launches = dict(fwd=fa.launches, dq=fa.launches_bwd_dq, dkv=fa.launches_bwd_dkv)
+        per_step.append(tuple(a - b for a, b in zip(counts(), before)))
+    launches = dict(zip(("fwd", "dq", "dkv", "delta", "group_sum"), counts()))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    log(f"training: launches per step (fwd, dq, dkv) {per_step} (totals {launches})")
+    log(f"training: launches per step (fwd, dq, dkv, delta, group_sum) {per_step} (totals {launches})")
     depth = len(trainer.model.llm.layers)
-    if any(c != (2 * depth, depth, depth) for c in per_step):
-        raise AssertionError(f"expected {(2 * depth, depth, depth)} launches per step, got {per_step}")
+    attn = trainer.model.llm.layers[0].attn
+    grouped = attn.configs[0].num_heads > attn.configs[0].num_kv_heads
+    expected = (2 * depth, depth, depth, depth, depth if grouped else 0)
+    if any(c != expected for c in per_step):
+        raise AssertionError(f"expected {expected} launches per step, got {per_step}")
     losses = [r["loss"] for r in records]
     norms = [r["grad_norm"] for r in records]
     if not all(math.isfinite(x) for x in losses + norms):
@@ -1316,6 +1431,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"build: {source}: {line.strip()}")
 
+    occupancy = backward_occupancy(TRAIN_BATCH)
     max_err = check_flash_kernel(device)
     bwd_err = check_flash_backward(device)
     timing = time_flash_kernel(device)
@@ -1358,7 +1474,19 @@ def main() -> int:
             replaces="lap_tpu/ops/flash_attention.py:215", launches=train_launches["dkv"],
             max_abs_err=bwd_err["dkv"], **bwd_timing["dkv"],
         ),
+        dict(
+            name="flash_attention_bwd_delta", route="cuda", source=csrc + fa.BWD_SOURCE,
+            replaces="lap_tpu/ops/flash_attention.py:270", launches=train_launches["delta"],
+            max_abs_err=bwd_err["delta"], **bwd_timing["delta"],
+        ),
+        dict(
+            name="flash_attention_bwd_group_sum", route="cuda", source=csrc + fa.BWD_SOURCE,
+            replaces="lap_tpu/ops/flash_attention.py:340", launches=train_launches["group_sum"],
+            max_abs_err=bwd_err["group_sum"], **bwd_timing["group_sum"],
+        ),
     ]
+    for name in ("dq", "dkv"):
+        kernels[1 + (name == "dkv")].update({f"occupancy_{k}": v for k, v in occupancy[name].items()})
     json_shape, json_rows = QUANT_JSON_SHAPE
     k, n = {name: (k, n) for name, k, n in QUANT_SHAPES}[json_shape]
     for index, (name, replaces) in enumerate((("int8_matmul", "lap_tpu/ops/int8_matmul.py:56"),

@@ -68,12 +68,13 @@ __device__ __forceinline__ int swz(int row, int chunk) {
 }
 
 // Async copy of rows [row0, row0 + BLOCK) of a [rows, H] bf16 matrix with
-// row stride `stride` (elements) into a swizzled shared tile.
-template <int H, int ROWS>
+// row stride `stride` (elements) into a swizzled shared tile, by a block of
+// THREADS threads.
+template <int H, int ROWS, int THREADS = NUM_THREADS>
 __device__ __forceinline__ void load_tile(uint4* tile, const __nv_bfloat16* base, int64_t stride,
                                           int row0, int rows) {
   constexpr int CHUNKS = H / 8;
-  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += NUM_THREADS) {
+  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += THREADS) {
     const int r = idx / CHUNKS;
     const int c = idx % CHUNKS;
     const bool valid = row0 + r < rows;

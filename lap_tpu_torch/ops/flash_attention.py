@@ -13,10 +13,10 @@ Semantics held from the Pallas kernels: logits in float32, scaled, masked to
 without repeating K/V; a fully masked query row gives zeros and
 ``lse = -2.3819763e38`` (the kernel's mask constant) forward and a zero dQ
 backward; the backward recomputes ``P = exp(S - lse)`` from the saved lse and
-takes ``delta = sum_h dO * O`` in float32 outside the kernels. The CUDA kernels
-round P (and dS) to bf16 for their tensor-core products, where the Pallas
-kernels keep them in float32; the plain versions keep them in float32 like the
-Pallas kernels.
+takes ``delta = sum_h dO * O`` in float32 before the gradient kernels (on the
+card by a small kernel of its own). The CUDA kernels round P (and dS) to bf16
+for their tensor-core products, where the Pallas kernels keep them in float32;
+the plain versions keep them in float32 like the Pallas kernels.
 
 The wrappers take the plain versions only for CPU tensors. On a CUDA tensor
 they launch the kernels or raise.
@@ -37,14 +37,29 @@ BWD_SOURCE = "flash_attention_bwd.cu"
 launches = 0
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
+launches_bwd_delta = 0
+launches_bwd_group_sum = 0
 
 _I64 = ctypes.c_longlong
 _SHAPE_STRIDES_SCALE_STREAM = [ctypes.c_int] * 6 + [_I64] * 11 + [ctypes.c_float, ctypes.c_void_p]
 _SIGNATURE = {"flash_attention_fwd": [ctypes.c_void_p] * 6 + _SHAPE_STRIDES_SCALE_STREAM}
 _BWD_SIGNATURE = {
     "flash_attention_bwd_dq": [ctypes.c_void_p] * 8 + _SHAPE_STRIDES_SCALE_STREAM,
-    "flash_attention_bwd_dkv": [ctypes.c_void_p] * 9 + _SHAPE_STRIDES_SCALE_STREAM,
+    "flash_attention_bwd_dkv": [ctypes.c_void_p] * 10 + _SHAPE_STRIDES_SCALE_STREAM,
+    "flash_attention_bwd_group_sum": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "flash_attention_bwd_delta": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [_I64] * 3 + [ctypes.c_void_p],
+    "flash_attention_bwd_info": [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
 }
+
+# Launch geometry of the backward kernels; mirrors the constants of
+# ``csrc/flash_attention_bwd.cu`` (``backward_info`` reads the compiled
+# kernels' own figures on the card).
+DQ_BLOCK_M, DQ_BLOCK_N, DQ_STAGES = 64, 16, 3
+DKV_BLOCK_N, DKV_BLOCK_M, DKV_STAGES = 32, 32, 2
+# Hopper: shared memory of an SM (the runtime reserves 1 KB of it for each
+# resident block).
+SM_SHARED_BYTES = 228 * 1024
+BLOCK_RESERVED_SHARED = 1024
 
 
 def flash_attention_plain(q, k, v, mask, *, scale: float | None = None):
@@ -99,6 +114,51 @@ def flash_attention_backward_plain(q, k, v, mask, out, lse, dout, scale: float |
     dq = torch.einsum("bkgts,bskh->btkgh", ds, kf) * scale
     dk = torch.einsum("bkgts,btkgh->bskh", ds, qf) * scale
     return dq.reshape(b, t, n, h).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_delta_plain(out, dout):
+    """delta [B, N, T] = sum_h dO * O in float32 from out, dout [B, T, N, H]."""
+    return (dout.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def backward_plan(b, t, s, n, kh, h):
+    """Launch geometry of the backward kernels for q [b, t, n, h] and k, v
+    [b, s, kh, h]: grids, dynamic shared memory per block, the blocks per SM
+    that shared memory allows, the f32 scratch of the GQA group sum (None when
+    the group is 1) and whether the group-sum pass runs."""
+    group = n // kh
+
+    def blocks_per_sm(smem):
+        return SM_SHARED_BYTES // (smem + BLOCK_RESERVED_SHARED)
+
+    dq_smem = (2 * DQ_BLOCK_M + 2 * DQ_STAGES * DQ_BLOCK_N) * h * 2
+    dkv_smem = ((2 * DKV_BLOCK_N + 2 * DKV_STAGES * DKV_BLOCK_M) * h * 2
+                + 2 * DKV_BLOCK_N * DKV_BLOCK_M * 2 + DKV_BLOCK_N * DKV_BLOCK_M * 4
+                + 2 * DKV_STAGES * DKV_BLOCK_M * 4)
+    return dict(
+        group=group,
+        dq_grid=(-(-t // DQ_BLOCK_M), n, b), dq_smem=dq_smem, dq_blocks_per_sm=blocks_per_sm(dq_smem),
+        dkv_grid=(-(-s // DKV_BLOCK_N), n, b), dkv_smem=dkv_smem, dkv_blocks_per_sm=blocks_per_sm(dkv_smem),
+        scratch_shape=(2, b, s, n, h) if group > 1 else None,
+        group_sum=group > 1,
+    )
+
+
+def backward_info(h):
+    """{"dq": ..., "dkv": ...} of the compiled kernels at head dim ``h`` on
+    the current card: registers and local (spill) bytes a thread, dynamic
+    shared memory, and resident blocks per SM from the occupancy query."""
+    from lap_tpu_torch import cuda_build
+
+    lib = cuda_build.load(BWD_SOURCE, _BWD_SIGNATURE)
+    info = {}
+    for which, name in enumerate(("dq", "dkv")):
+        out = (ctypes.c_int * 4)()
+        err = lib.flash_attention_bwd_info(which, h, out)
+        if err != 0:
+            raise RuntimeError(f"flash_attention_bwd_info failed with cudaError {err}")
+        info[name] = dict(registers=out[0], local_bytes=out[1], smem=out[2], blocks_per_sm=out[3])
+    return info
 
 
 def _check_operand(name, x, rank=4):
@@ -175,9 +235,143 @@ def flash_attention_forward(q, k, v, mask, *, scale: float | None = None):
     return flash_attention_plain(q, k, v, mask, scale=scale)
 
 
-def _launch_backward(q, k, v, mask, out, lse, dout, scale, *, need_dq=True, need_dkv=True):
-    """Launch the backward kernels; returns (dq, dk, dv), None where not needed."""
+def _launch_delta(out, dout):
+    """delta [B, N, T] from the contiguous bf16 ``dout`` by the delta kernel."""
+    global launches_bwd_delta
+    _check_operand("out", out)
+    if out.dtype != torch.bfloat16 or out.shape != dout.shape or out.device != dout.device:
+        raise ValueError("out must be a bfloat16 tensor shaped like the output gradient, on its device")
+    from lap_tpu_torch import cuda_build
+
+    lib = cuda_build.load(BWD_SOURCE, _BWD_SIGNATURE)
+    b, t, n, h = out.shape
+    delta = torch.empty((b, n, t), dtype=torch.float32, device=out.device)
+    err = lib.flash_attention_bwd_delta(
+        dout.data_ptr(), out.data_ptr(), delta.data_ptr(), b, t, n, h, *out.stride()[:3],
+        torch.cuda.current_stream(out.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_delta launch failed with cudaError {err}")
+    launches_bwd_delta += 1
+    return delta
+
+
+def flash_attention_delta(out, dout):
+    """delta [B, N, T] = sum_h dO * O in float32: the kernel on CUDA tensors,
+    the plain version on the CPU."""
+    if out.is_cuda:
+        return _launch_delta(out, dout.contiguous())
+    return flash_attention_delta_plain(out, dout)
+
+
+def flash_attention_group_sum_plain(partial, kh):
+    """The GQA group sum of per-head f32 partials [2, B, S, N, H]: heads
+    ``kh * G .. kh * G + G - 1`` added in that order in float32, then
+    (dk, dv) [B, S, kh, H] in bfloat16."""
+    _, b, s, n, h = partial.shape
+    heads = partial.reshape(2, b, s, kh, n // kh, h).unbind(dim=4)
+    acc = heads[0]
+    for head in heads[1:]:
+        acc = acc + head
+    dk, dv = acc.to(torch.bfloat16).unbind(0)
+    return dk, dv
+
+
+def flash_attention_group_sum(partial, kh):
+    """``flash_attention_group_sum_plain`` by the group-sum kernel on CUDA
+    tensors (the same additions in the same order: the same bits)."""
+    global launches_bwd_group_sum
+    if not partial.is_cuda:
+        return flash_attention_group_sum_plain(partial, kh)
+    _, b, s, n, h = partial.shape
+    if partial.dtype != torch.float32 or not partial.is_contiguous() or n % kh or h % 4:
+        raise ValueError(f"partial must be contiguous float32 [2, B, S, N, H] with N a multiple of {kh}")
+    from lap_tpu_torch import cuda_build
+
+    lib = cuda_build.load(BWD_SOURCE, _BWD_SIGNATURE)
+    dk = torch.empty((b, s, kh, h), dtype=torch.bfloat16, device=partial.device)
+    dv = torch.empty_like(dk)
+    err = lib.flash_attention_bwd_group_sum(
+        partial.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, kh, n // kh, h,
+        torch.cuda.current_stream(partial.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_group_sum launch failed with cudaError {err}")
+    launches_bwd_group_sum += 1
+    return dk, dv
+
+
+def flash_attention_backward_kernels(q, k, v, mask, lse, dout, delta, *, scale: float | None = None,
+                                     need_dq: bool = True, need_dkv: bool = True):
+    """The gradient kernels alone on CUDA tensors, from a contiguous bf16
+    ``dout`` and its ``delta`` [B, N, T]: dQ, and dK/dV followed by the group
+    sum when N > K. Returns (dq, dk, dv), None where not needed."""
     global launches_bwd_dq, launches_bwd_dkv
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    _check_call(q, k, v, mask)
+    if dout.device != q.device or dout.dtype != torch.bfloat16 or dout.shape != q.shape:
+        raise ValueError("the output gradient must be a bfloat16 tensor shaped like q, on q's device")
+    if not dout.is_contiguous():
+        raise ValueError("the gradient kernels read a contiguous output gradient")
+    b, t, n, h = q.shape
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.dtype != torch.float32 or tuple(x.shape) != (b, n, t) or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 [B, N, T]")
+    from lap_tpu_torch import cuda_build
+
+    lib = cuda_build.load(BWD_SOURCE, _BWD_SIGNATURE)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+              dout.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    tail = _shape_strides_scale_stream(q, k, v, mask, scale)
+    main = torch.cuda.current_stream(q.device)
+    # With both, dQ runs on a second stream beside dK/dV, so that each kernel's
+    # last, partly filled wave of blocks shares the card with the other's.
+    # The outputs and the inputs' memory belong to the current stream, which
+    # waits for the second one before returning.
+    side = _side_stream(q.device) if need_dq and need_dkv else main
+    dq = dk = dv = None
+    if need_dq:
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        side.wait_stream(main)
+        err = lib.flash_attention_bwd_dq(*common, dq.data_ptr(), *tail[:-1], side.cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attention_bwd_dq launch failed with cudaError {err}")
+        launches_bwd_dq += 1
+    if need_dkv:
+        s, kh = k.shape[1], k.shape[2]
+        plan = backward_plan(b, t, s, n, kh, h)
+        partial = None
+        if plan["group_sum"]:
+            partial = torch.empty(plan["scratch_shape"], dtype=torch.float32, device=q.device)
+        else:
+            dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+            dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+        err = lib.flash_attention_bwd_dkv(
+            *common, None if dk is None else dk.data_ptr(), None if dv is None else dv.data_ptr(),
+            None if partial is None else partial.data_ptr(), *tail,
+        )
+        if err != 0:
+            raise RuntimeError(f"flash_attention_bwd_dkv launch failed with cudaError {err}")
+        launches_bwd_dkv += 1
+        if partial is not None:
+            dk, dv = flash_attention_group_sum(partial, kh)
+    if side is not main:
+        main.wait_stream(side)
+    return dq, dk, dv
+
+
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device):
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
+
+
+def _launch_backward(q, k, v, mask, out, lse, dout, scale, *, need_dq=True, need_dkv=True):
+    """delta, then the gradient kernels; returns (dq, dk, dv), None where not needed."""
     _check_call(q, k, v, mask)
     if dout.device != q.device or dout.dtype != torch.bfloat16 or dout.shape != q.shape:
         raise ValueError("the output gradient must be a bfloat16 tensor shaped like q, on q's device")
@@ -185,29 +379,9 @@ def _launch_backward(q, k, v, mask, out, lse, dout, scale, *, need_dq=True, need
         raise ValueError("lse must be float32 [B, N, T]")
     # Gradients arrive from autograd in any layout; the kernels read [B,T,N,H].
     dout = dout.contiguous()
-    lse = lse.contiguous()
-    delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()  # [B,N,T]
-    from lap_tpu_torch import cuda_build
-
-    lib = cuda_build.load(BWD_SOURCE, _BWD_SIGNATURE)
-    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-              dout.data_ptr(), lse.data_ptr(), delta.data_ptr())
-    tail = _shape_strides_scale_stream(q, k, v, mask, scale)
-    dq = dk = dv = None
-    if need_dq:
-        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        err = lib.flash_attention_bwd_dq(*common, dq.data_ptr(), *tail)
-        if err != 0:
-            raise RuntimeError(f"flash_attention_bwd_dq launch failed with cudaError {err}")
-        launches_bwd_dq += 1
-    if need_dkv:
-        dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-        dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-        err = lib.flash_attention_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(), *tail)
-        if err != 0:
-            raise RuntimeError(f"flash_attention_bwd_dkv launch failed with cudaError {err}")
-        launches_bwd_dkv += 1
-    return dq, dk, dv
+    delta = _launch_delta(out, dout)
+    return flash_attention_backward_kernels(q, k, v, mask, lse.contiguous(), dout, delta, scale=scale,
+                                            need_dq=need_dq, need_dkv=need_dkv)
 
 
 def flash_attention_backward(q, k, v, mask, out, lse, dout, *, scale: float | None = None,

@@ -153,6 +153,81 @@ def test_flash_backward_raises_on_a_cuda_tensor_it_cannot_take(cuda):
         fa.flash_attention_backward(q, q, q, mask, q, lse, q)
 
 
+@pytest.mark.parametrize("n,kh", [(8, 1), (4, 2)])
+def test_flash_backward_grouped_ragged_edges(cuda, n, kh):
+    """GQA groups 8 and 2 at H = 256 (the group-sum pass) with fully masked
+    rows, all-false key columns, and T and S that are multiples of no tile
+    (16, 32, 64); one launch of each kernel and of the pass."""
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    b, t, s, h = 2, 203, 141, 256
+    q, k, v, dout, mask = _bwd_inputs(cuda, b, t, s, n, kh, h)
+    mask[:, :, 37:59] = False  # all-false key columns inside a tile as well
+    out, lse = fa.flash_attention_forward(q, k, v, mask)
+    counters = ("launches_bwd_dq", "launches_bwd_dkv", "launches_bwd_delta", "launches_bwd_group_sum")
+    before = [getattr(fa, c) for c in counters]
+    dq, dk, dv = fa.flash_attention_backward(q, k, v, mask, out, lse, dout)
+    torch.cuda.synchronize()
+    assert [getattr(fa, c) - x for c, x in zip(counters, before)] == [1, 1, 1, 1]
+    _assert_grads_close((dq, dk, dv), fa.flash_attention_backward_plain(q, k, v, mask, out, lse, dout))
+    assert dq[:, : t // 7].abs().max().item() == 0.0
+    for cols in (slice(37, 59), slice(s - 16, s)):
+        assert dk[:, cols].abs().max().item() == 0.0 and dv[:, cols].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("case", ["training_step", "gqa_group4_h128"])
+def test_flash_backward_gives_the_same_bits_twice(cuda, case):
+    """No atomics: two calls on the same inputs give the same bits, at the
+    training call's shape and strides (group 8) and at group 4, H = 128."""
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    if case == "training_step":
+        b, t, s = 8, 692, 708
+        q, k, v, dout, mask = _bwd_inputs(cuda, b, s, s, 8, 1, 256)
+        q, dout, mask = q[:, :t], dout[:, :t], mask[:, :t]
+    else:
+        q, k, v, dout, mask = _bwd_inputs(cuda, 2, 300, 270, 8, 2, 128)
+    out, lse = fa.flash_attention_forward(q, k, v, mask)
+    first = fa.flash_attention_backward(q, k, v, mask, out, lse, dout)
+    second = fa.flash_attention_backward(q, k, v, mask, out, lse, dout)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second, strict=True):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("b,t,n,h,strided", [(8, 692, 8, 256, True), (2, 77, 4, 128, False)])
+def test_flash_delta_kernel_matches_plain(cuda, b, t, n, h, strided):
+    """delta = sum_h dO * O in f32, one launch: the kernel and the plain
+    version sum the same products in other orders, each within (H - 1) f32
+    ulps of the sum of |dO * O|."""
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    rows = t + 16 if strided else t  # out and dO as slices of a longer tensor
+    out = torch.randn((b, rows, n, h), generator=g, device=cuda).to(torch.bfloat16)[:, :t]
+    dout = torch.randn((b, rows, n, h), generator=g, device=cuda).to(torch.bfloat16)[:, :t]
+    before = fa.launches_bwd_delta
+    delta = fa.flash_attention_delta(out, dout)
+    torch.cuda.synchronize()
+    assert fa.launches_bwd_delta == before + 1
+    ref = fa.flash_attention_delta_plain(out, dout)
+    bound = 2 * (h - 1) * 2.0**-24 * (dout.float() * out.float()).abs().sum(-1).transpose(1, 2)
+    assert delta.shape == (b, n, t) and bool(((delta - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("h", [128, 256])
+def test_backward_plan_matches_the_compiled_kernels(cuda, h):
+    """The wrapper's launch plan has the compiled kernels' shared memory, and
+    the occupancy query keeps at least two blocks of each on an SM."""
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    plan = fa.backward_plan(8, 692, 708, 8, 1, h)
+    info = fa.backward_info(h)
+    for name in ("dq", "dkv"):
+        assert info[name]["smem"] == plan[name + "_smem"]
+        assert info[name]["blocks_per_sm"] >= 2, info
+
+
 def test_lap_training_pass_goes_through_the_kernels(cuda):
     """A narrow two-expert model at head dim 128 and 200 prefix tokens: the
     ``auto`` rule takes the flash kernels forward and backward on the card."""
