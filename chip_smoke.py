@@ -19,12 +19,16 @@ just after. Phases, in order; any failure exits non-zero:
     the first 692 rows of the joint 708-row tensors), forward (out, lse) and
     backward, and two backward calls there and at GQA group 4 must give the
     same bits; the dequant matmuls at 1, 16, 100 and 128 rows for every
-    quantized weight shape; print the backward kernels' registers, spills,
-    resident blocks per SM and waves;
+    quantized weight shape, two calls giving the same bits at each, and
+    their split-K arrival counters back at zero after all the calls; print
+    the backward kernels' registers, spills, resident blocks per SM and
+    waves, and the dequant kernels' beside their launch plan;
  3. time each kernel, its plain version and one PyTorch library call that
     computes the same function (a yardstick the port never calls), beside the
-    least time the card could take (``bound_ms``); the dequant matmuls, the
-    delta kernel and the group-sum pass by their device time, the backward
+    least time the card could take (``bound_ms``); the dequant matmuls (every
+    quantized shape at the rows its path gives it, the three largest at 16
+    rows too, and MLP gate/up at 100 and 128 rows), the delta kernel and the
+    group-sum pass by their device time, the backward
     last, at the batch the training path ran with: each kernel alone and the
     whole ``flash_attention_backward`` as the path calls it, beside autograd
     through ``F.scaled_dot_product_attention``;
@@ -45,7 +49,8 @@ just after. Phases, in order; any failure exits non-zero:
     int8 and int4: per request 18 flash launches (the 692-row prefill) and,
     quantized, 73 * AR_STEPS + 1 dequant launches (18 layers x 4 matmuls + the
     vocab head per step, plus the first logits); latency per request and per
-    token, the prefill alone, and one profiled request per mode;
+    token, the prefill alone, and one profiled request per mode, which must
+    hold exactly one dequant kernel per dequant call;
  9. quantized AR logits with the kernels against the same model with the
     plain versions, teacher-forced, and the quantized-vs-bf16 difference of
     the first logits (information);
@@ -129,14 +134,24 @@ QUANT_SHAPES = (
     ("q_attn_vec", 2048, 2048), ("mlp_gate_up", 2048, 32768), ("mlp_down", 16384, 2048),
     ("vocab", 2048, 257152), ("expert_gate_up", 1024, 8192), ("expert_down", 4096, 1024),
 )
-QUANT_TIMED = ("mlp_down", "mlp_gate_up", "vocab")
-QUANT_TIMED_ROWS = (1, 16)
+# (shape, rows) timed: every quantized shape at the rows its path gives it
+# (AR steps: 1 row; the flow expert: 16 rows), the three largest at 16 rows
+# too, and 100 and 128 rows once (QUANT_MAX_ROWS routes up to 128 rows to
+# the kernels).
+QUANT_TIMED = (
+    ("mlp_down", 1), ("mlp_down", 16), ("mlp_gate_up", 1), ("mlp_gate_up", 16), ("vocab", 1), ("vocab", 16),
+    ("q_attn_vec", 1), ("expert_gate_up", 16), ("expert_down", 16), ("mlp_gate_up", 100), ("mlp_gate_up", 128),
+)
 # The shape whose times stand in the kernels JSON line: the vocab head of an
 # AR step, the largest weight read of a decode step.
 QUANT_JSON_SHAPE = ("vocab", 1)
 # Operand copies cycled through when timing, at least this many bytes, so
 # that each call finds its weight out of the 50 MB L2 as a decode step does.
 COLD_BYTES = 256e6
+# Share of a profiled AR request's kernels the trace must keep: the profiler
+# may drop a few events at the ends of a trace (10 of 4,673 dequant kernels
+# once on an H100, and a few of every other family in the same trace).
+PROFILE_KEPT_SHARE = 0.99
 # AR serving at batch 1: a fixed budget and no EOS stop, so the work does not
 # depend on what random weights emit.
 AR_STEPS = 64
@@ -560,6 +575,9 @@ def time_flash_backward(device, batch):
     )
     delta_plain_ms = time_cuda(lambda: fa.flash_attention_delta_plain(out, dout_c), iters=20)
     group_sum_plain_ms = time_cuda(lambda: fa.flash_attention_group_sum_plain(partial, kh), iters=20)
+    # Yardstick only: torch.sum over the group axis of the same f32 partials (f32 out).
+    grouped = partial.view(2, b, s, kh, n // kh, h)
+    group_sum_library_ms = device_ms_per_call([lambda: torch.sum(grouped, dim=4)], iters=50)
     # Yardstick only: autograd through one PyTorch call, dq, dk and dv together.
     qt = q.transpose(1, 2).detach().requires_grad_()
     kt = k.transpose(1, 2).detach().requires_grad_()
@@ -589,12 +607,13 @@ def time_flash_backward(device, batch):
          partial.numel() * 4 + 2 * k.numel() * 2),
     ):
         bound_ms, bound_by, flops_ms, bytes_ms = bound(flops, peak, nbytes)
-        results[name] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+        library = group_sum_library_ms if name == "group_sum" else None  # torch.sum over the group axis
+        results[name] = dict(ms=ms, plain_ms=plain, library_ms=library, bound_ms=bound_ms, bound_by=bound_by,
                              batch=b)
         log(
             f"timing flash_attention_bwd_{name} B{b} T{t} S{s} N{n} K{kh} H{h}: kernel_ms={ms:.5f} "
             f"plain_ms={plain:.5f} bound_ms={bound_ms:.5f} (flops={flops} -> {flops_ms:.5f} ms, "
-            f"bytes={nbytes} -> {bytes_ms:.5f} ms)"
+            f"bytes={nbytes} -> {bytes_ms:.5f} ms) library_ms={library}"
         )
     for name in ("dq", "dkv"):
         # The plain backward and the library call each give dq, dk and dv at once.
@@ -628,11 +647,33 @@ def quant_kinds():
     )
 
 
+def dequant_kernel_info() -> None:
+    """Registers, spills, shared memory and resident blocks per SM of each
+    compiled dequant kernel (8 and 16 rows a tile), beside the wrapper's
+    launch plan, which must have the same shared memory and count on no more
+    blocks per SM than fit."""
+    from lap_tpu_torch.ops import int8_matmul as i8
+
+    for name, module, *_ in quant_kinds():
+        kind = name[:4]
+        for rows in (8, 16):
+            info = module.info(rows)
+            plan = i8.launch_plan(kind, rows, 2048, 2048, 256 if kind == "int4" else None)
+            log(f"kernel {name} {rows} rows a tile: {info['registers']} registers, {info['local_bytes']} bytes "
+                f"of local memory (spills), {info['smem']} bytes of shared memory, {info['blocks_per_sm']} "
+                f"resident blocks per SM (plan: {plan['smem']} bytes, at least {plan['blocks_per_sm']} blocks)")
+            if info["smem"] != plan["smem"] or info["blocks_per_sm"] < plan["blocks_per_sm"]:
+                raise AssertionError(f"{name}: the launch plan disagrees with the compiled kernel: {info} {plan}")
+
+
 def check_quant_kernels(device):
     """Each dequant kernel against its plain version (f32, same bf16 x) at
     every quantized weight shape of the paths and 1, 16, 100 and 128 rows;
-    and the same bits from two calls (the split-K sums run in a fixed order)."""
+    the same bits from two calls (the split-K sums run in a fixed order);
+    and the split-K arrival counters back at zero after all the calls."""
     import torch
+
+    from lap_tpu_torch.ops import int8_matmul as i8
 
     g = torch.Generator(device=device).manual_seed(6)
     worst = {}
@@ -654,11 +695,14 @@ def check_quant_kernels(device):
                 if bool((err > bound).any()):
                     raise AssertionError(f"{name} {shape_name} M={m}: differs beyond {QUANT_RTOL}|ref| + "
                                          f"{QUANT_ATOL_OF_MAX} max|ref|")
-                if m == 16 and not torch.equal(got, kernel(x, wq, scale)):
-                    raise AssertionError(f"{name} {shape_name}: two calls gave different bits")
+                if not torch.equal(got, kernel(x, wq, scale)):
+                    raise AssertionError(f"{name} {shape_name} M={m}: two calls gave different bits")
                 worst[name] = max(worst.get(name, 0.0), err.max().item())
             del wq, scale
         del w
+    if int(i8.splitk_counters(device).abs().sum()) != 0:
+        raise AssertionError("the split-K arrival counters are not back at zero")
+    log("kernel dequant: the split-K arrival counters are back at zero after every call")
     torch.cuda.empty_cache()
     return worst
 
@@ -698,19 +742,25 @@ def dequant_bound(name, m, k, n):
 
 
 def time_quant_kernels(device):
-    """Each dequant kernel at the decode shapes that matter most (MLP down,
-    gate/up, vocab head; 1 and 16 rows) with cold L2, beside its bound, its
-    plain version and ``torch.matmul`` on the bf16 weight (what the bf16 path
-    runs, 2x or 4x the weight bytes); ``torch._weight_int8pack_mm`` too where
-    it runs on CUDA. Returns {kernel: {(shape, M): timing}}."""
+    """Each dequant kernel at every ``QUANT_TIMED`` shape and row count, with
+    cold L2, beside its bound, its plain version and ``torch.matmul`` on the
+    bf16 weight (what the bf16 path runs, 2x or 4x the weight bytes);
+    ``torch._weight_int8pack_mm`` too where it runs on CUDA. Returns
+    {kernel: {(shape, M): timing}}."""
     import itertools
 
     import torch
 
+    from lap_tpu_torch.ops import int8_matmul as i8
+
     g = torch.Generator(device=device).manual_seed(7)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     shapes = {name: (k, n) for name, k, n in QUANT_SHAPES}
     out = {name: {} for name, *_ in quant_kinds()}
-    for shape_name in QUANT_TIMED:
+    rows_of = {}
+    for shape_name, m in QUANT_TIMED:
+        rows_of.setdefault(shape_name, []).append(m)
+    for shape_name, rows in rows_of.items():
         k, n = shapes[shape_name]
         w = (torch.randn((k, n), generator=g, device=device) * 0.02).to(torch.bfloat16)
         lib_copies = [w] + [w.clone() for _ in range(max(0, math.ceil(COLD_BYTES / w.nbytes) - 1))]
@@ -718,7 +768,7 @@ def time_quant_kernels(device):
             wq, scale = quantize(w)
             copies = [(wq, scale)] + [(wq.clone(), scale.clone())
                                       for _ in range(max(0, math.ceil(COLD_BYTES / wq.nbytes) - 1))]
-            for m in QUANT_TIMED_ROWS:
+            for m in rows:
                 x = torch.randn((m, k), generator=g, device=device).to(torch.bfloat16)
                 ms = device_ms_per_call([lambda c=c: kernel(x, *c) for c in copies], iters=40)
                 cycle = itertools.cycle(copies)
@@ -738,7 +788,13 @@ def time_quant_kernels(device):
                 out[name][(shape_name, m)] = dict(
                     ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 )
-                log(f"timing {name} {shape_name} M={m} K={k} N={n}: kernel_ms={ms:.5f} (device time, "
+                plan = i8.launch_plan(name[:4], m, k, n, 256 if name == "int4_matmul" else None, sms)
+                one_row = out[name].get((shape_name, 1))
+                log(f"timing {name} {shape_name} M={m} K={k} N={n} grid={plan['grid']} "
+                    f"(row tiles, column blocks, splits; {plan['chunks_per_split']} chunks a split, "
+                    f"{plan['in_flight_per_sm'] / 1024:.1f} KB of weight in flight per SM): kernel_ms={ms:.5f} "
+                    + ("" if one_row is None or m == 1 else f"({ms / one_row['ms']:.3f}x its 1-row time) ")
+                    + f"(device time, "
                     f"{len(copies)} weight copies; event-timed loop {events_ms:.5f}) bound_ms={bound_ms:.5f} "
                     f"({bound_by}, {nbytes} bytes) x{ms / bound_ms:.2f} of bound, "
                     f"{nbytes / ms / 1e6:.1f} GB/s; plain_ms={plain_ms:.5f} "
@@ -772,11 +828,13 @@ def make_request(seed: int, config):
     }
 
 
+# Names of the dequant kernels in a profile: one kernel per call.
+DEQUANT_KERNEL_NAMES = ("int8_matmul", "int4_matmul")
 # Kernel families of a profile, by substrings of the kernel's name; the first
 # family that matches takes the kernel, "other" the rest.
 KERNEL_FAMILIES = (
     ("flash kernels", ("flash_",)),
-    ("dequant kernels", ("int8_matmul", "int4_matmul", "splitk_reduce")),
+    ("dequant kernels", DEQUANT_KERNEL_NAMES),
     ("foreach passes (optimizer, EMA, norms)", ("multi_tensor_apply",)),
     ("convolution", ("cudnn", "convolve", "fprop", "wgrad", "dgrad")),
     ("GEMM", ("nvjet", "gemm", "cutlass", "xmma", "cublas", "gemv")),
@@ -787,10 +845,11 @@ KERNEL_FAMILIES = (
 )
 
 
-def report_profile(prof, what: str, wall_ms: float, tokens: int = 0) -> None:
+def report_profile(prof, what: str, wall_ms: float, tokens: int = 0) -> int:
     """Device time of one profiled call against its wall time: the largest
     kernels by name, then every kernel summed by family, so that the families
-    add up to the whole device time (and per token, for an AR request)."""
+    add up to the whole device time (and per token, for an AR request).
+    Returns the launches of dequant kernels in the profile."""
     events = [e for e in prof.key_averages() if e.device_time_total > 0 and e.device_type.name == "CUDA"]
     device_ms = sum(e.device_time_total for e in events) / 1e3
     n_kernels = sum(e.count for e in events)
@@ -813,11 +872,12 @@ def report_profile(prof, what: str, wall_ms: float, tokens: int = 0) -> None:
     for e in sorted(other, key=lambda e: -e.device_time_total)[:4]:
         log(f"profile:   other  {e.device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
     for e in events:
-        if any(k in e.key for k in ("flash_", "int8_matmul", "int4_matmul", "splitk_reduce")):
+        if any(k in e.key for k in ("flash_", *DEQUANT_KERNEL_NAMES)):
             log(f"profile:   kernel {e.device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
+    return sum(e.count for e in events if any(k in e.key for k in DEQUANT_KERNEL_NAMES))
 
 
-def profile_one_request(policy, request, what: str = "infer", tokens: int = 0) -> None:
+def profile_one_request(policy, request, what: str = "infer", tokens: int = 0) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -826,7 +886,7 @@ def profile_one_request(policy, request, what: str = "infer", tokens: int = 0) -
         t0 = time.monotonic()
         policy.infer(request)
         wall_ms = (time.monotonic() - t0) * 1e3
-    report_profile(prof, what, wall_ms, tokens)
+    return report_profile(prof, what, wall_ms, tokens)
 
 
 def reset_launch_counters() -> None:
@@ -1055,7 +1115,16 @@ def run_ar(model, config, device):
             f"ms_per_token(p50/{AR_STEPS})={p50 / AR_STEPS:.3f} prefill_ms={prefill_ms:.3f} "
             f"decode_ms_per_token={(p50 - prefill_ms) / AR_STEPS:.3f} "
             f"all_ms={[round(x, 3) for x in latencies]} tokens[0][:8]={tokens[0, :8].tolist()}")
-        profile_one_request(policy, requests[0], what=f"AR request ({mode}, {AR_STEPS} tokens)", tokens=AR_STEPS)
+        profiled = profile_one_request(policy, requests[0], what=f"AR request ({mode}, {AR_STEPS} tokens)",
+                                       tokens=AR_STEPS)
+        # One kernel per dequant call: the profile holds as many dequant kernels
+        # as the counters count calls, less the few events a trace of ~100k
+        # kernels may drop at its ends (every family loses them alike); a
+        # second kernel per call would double the count.
+        calls = sum(expected[1:])
+        log(f"profile: AR {mode} dequant kernels in the profile {profiled} for {calls} dequant calls")
+        if not PROFILE_KEPT_SHARE * calls <= profiled <= calls:
+            raise AssertionError(f"{mode} AR: the profile holds {profiled} dequant kernels for {calls} dequant calls")
     model.quantize_(None)
     return totals
 
@@ -1435,6 +1504,7 @@ def main() -> int:
     max_err = check_flash_kernel(device)
     bwd_err = check_flash_backward(device)
     timing = time_flash_kernel(device)
+    dequant_kernel_info()
     quant_err = check_quant_kernels(device)
     quant_timing = time_quant_kernels(device)
     check_small_reference(device)

@@ -13,165 +13,214 @@
 // What bounds it on the H100: bytes, as for int8 (int8_matmul.cu), at half
 // the weight bytes: K * N / 2 plus the scales (K / G * N * 4) at 3.35 TB/s.
 // At half the bytes per weight the conversion has half the time per weight,
-// so it must stay cheap.
+// and the fixed cost of a call weighs twice as much.
 //
-// Design (a simple, correct first version; pipelining and wgmma come later):
-// - out^T = W^T . x^T with bf16 mma.sync m16n8k16 and f32 accumulation, the
-//   weight on the 16-wide A side (dequant_matmul_common.cuh);
-// - a lane loads 8 neighbouring packed columns of a packed row in one 8-byte
-//   load (eight lanes cover 64 bytes), 16 loads for 64 packed rows before
-//   any conversion; the low nibbles feed the mma k-steps of rows [p, p + 64)
-//   and the high nibbles those of rows [K/2 + p, K/2 + p + 64), read from
-//   the same registers;
-// - conversion: the nibble is spliced into the mantissa of bf16 128.0 and
-//   its sign bit into the subtrahend (one byte permute, two logic ops and a
-//   bf16x2 subtract per two weights, exact);
-// - each 64-row slice lies inside one group (the group size is a multiple of
-//   64), so a warp scales the f32 sum of each slice by the group's scale
-//   before it adds it to its total: the Pallas kernel scales a whole group's
-//   partial, this scales the group's 64-row pieces (the same sum in another
+// Design (dequant_matmul_common.cuh has the ring, the layout and the split
+// sum; the same as int8's, with packed bytes in place of int8 bytes):
+// - a block of 16 warps owns 128 packed columns, a tile of up to 16 rows of
+//   x and one split of the packed rows; it streams chunks of 64 packed rows
+//   (8 KB, 128 contraction rows) through a 4-stage cp.async ring, each stage
+//   with the chunk's x for the low half [p, p + 64) and the high half
+//   [K/2 + p, K/2 + p + 64) of K and the two scale rows the chunk needs (one
+//   group per half: the group size is a multiple of 64): 24 KB of weight in
+//   flight a block, every lane copying 16 bytes;
+// - up to 8 rows, each warp reads the 16 x 32 bytes of its k-step and
+//   columns of a chunk from shared memory once and converts both halves from
+//   the same words; at 9-16 rows, where the sums of both halves would not fit
+//   in 64 registers, each warp takes two k-steps of one half; conversion for
+//   mma.sync m16n8k16 (bf16, f32 sums, the weight on the 16-wide side): one
+//   XOR flips the sign bits of eight nibbles (u = v + 8), one byte permute
+//   gathers a tile's bytes of two rows, and each pair of weights is a shift,
+//   one logic op splicing u into the mantissa of bf16 128.0 and a bf16x2
+//   subtract of 136 (exact);
+// - a 64-row chunk of a half lies inside one group (the group size is a
+//   multiple of 64), so a warp sums its rows of a group (a quarter or a half
+//   of each chunk's) in f32 and scales that sum by the group's scale before
+//   it adds it to its total: the Pallas kernel scales a whole group's
+//   partial, this scales the sums of its parts (the same sum in another
 //   order);
-// - a block of 4 warps owns 64 output columns and up to 16 rows and splits
-//   its slice of K among its warps; K is split across blocks until the grid
-//   has two blocks per SM, and a second pass adds the splits in order (no
-//   atomics: the same bits on every run);
-// - ragged edges: rows past M are zero in registers, columns past N skipped
-//   (N a multiple of 16); K must be a multiple of 512 and the group size a
-//   multiple of 64 (LAP-3B: K in {1024, 2048, 4096, 16384}, groups of 256).
-//   The wrapper raises otherwise.
+// - the wrappers' plan (launch_plan in ops/int8_matmul.py) splits the packed
+//   rows until the grid keeps 40 KB of weight in flight per SM, or the whole
+//   weight;
+//   the splits' partials meet inside the kernel (one launch a call) in a
+//   fixed order;
+// - ragged edges: rows past M are zero in shared memory, columns past N are
+//   zero and skipped (N a multiple of 16); K must be a multiple of 128 and
+//   the group size a multiple of 64 that divides K/2 (LAP-3B: K in {1024,
+//   2048, 4096, 16384}, groups of 256). The wrapper raises otherwise.
 
 #include "dequant_matmul_common.cuh"
 
 namespace {
 
-constexpr int TILES = 4;  // 16-column mma tiles per warp: 64 columns, one 8-byte load a lane
-constexpr int BLOCK_N = 16 * TILES;
-
-__device__ __forceinline__ uint32_t half_of(const uint2& v, int i) { return i == 0 ? v.x : v.y; }
+constexpr int SCALE_STAGE_BYTES = 2 * BLOCK_N * 4;  // the low and the high half's scale rows
 
 template <int MT>
-__global__ void __launch_bounds__(NUM_THREADS)
+__host__ __device__ constexpr int x_stage_bytes() {
+  return 2 * 8 * MT * ROW_BYTES;
+}
+template <int MT>
+__host__ __device__ constexpr int stage_bytes() {
+  return W_STAGE_BYTES + x_stage_bytes<MT>() + SCALE_STAGE_BYTES;
+}
+template <int MT>
+__host__ __device__ constexpr int smem_bytes() {
+  return STAGES * stage_bytes<MT>();
+}
+
+template <int MT>
+__global__ void __launch_bounds__(DQ_THREADS, DQ_MIN_BLOCKS)
     int4_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ packed,
-                       const float* __restrict__ scales, float* __restrict__ partial, int M, int N,
-                       int K, int group, int kp_per_block) {
-  __shared__ float red[NUM_WARPS * 8 * MT * (BLOCK_N + 4)];
-  const int warp = threadIdx.x / 32;
+                       const float* __restrict__ scales, float* __restrict__ partial,
+                       __nv_bfloat16* __restrict__ out, int* __restrict__ counters, int M, int N,
+                       int K, int group, int chunks) {
+  extern __shared__ uint4 smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem);
   const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int q = lane & 3;
-  const int n0 = blockIdx.x * BLOCK_N;
-  const int split = blockIdx.y;
-  const int m0 = blockIdx.z * 8 * MT;
+  const int m0 = blockIdx.x * 8 * MT;
+  const int n0 = blockIdx.y * BLOCK_N;
   const int half = K / 2;
-  const int kp_per_warp = kp_per_block / NUM_WARPS;
-  const int p_begin = split * kp_per_block + warp * kp_per_warp;
+  const int p_begin = blockIdx.z * chunks * CHUNK_ROWS;
+  const int group_chunks = group / CHUNK_ROWS;
+  WeightCopy wcopy(packed, p_begin, n0, N);
+  XCopy<8 * MT> xcopy(x, m0, M, K, p_begin);
+  // The last 64 threads copy the scale rows of the chunk's groups in the low
+  // and the high half, moving down a row when a group ends (at the same chunk
+  // in both halves: K/2 is a multiple of the group).
+  const int si = static_cast<int>(threadIdx.x) - (DQ_THREADS - 2 * BLOCK_N / 4);
+  const int scol = n0 + 4 * (si % (BLOCK_N / 4));
+  const bool scopy = si >= 0, svalid = scopy && scol < N;
+  const float* ssrc =
+      scales + static_cast<int64_t>((si >= BLOCK_N / 4 ? half : 0) + p_begin) / group * N + (svalid ? scol : 0);
+  int scale_left = group_chunks - p_begin / CHUNK_ROWS % group_chunks;  // chunks until the group ends
+  auto load = [&](int slot) {
+    unsigned char* st = base + slot * stage_bytes<MT>();
+    wcopy.issue(st, N);
+    xcopy.issue2(st + W_STAGE_BYTES, st + W_STAGE_BYTES + x_stage_bytes<MT>() / 2, half);
+    if (scopy) cp_async_16(smem_addr(st + W_STAGE_BYTES + x_stage_bytes<MT>() + 16 * si), ssrc, svalid ? 16 : 0);
+    if (--scale_left == 0) {
+      ssrc += N;
+      scale_left = group_chunks;
+    }
+  };
 
-  const int col = n0 + 8 * g;  // this lane's 8 columns
-  const bool col_ok = col < N;
-  const __nv_bfloat16* xrow[MT];
-  bool row_ok[MT];
+  // Warp part 0 .. 3. One 8-row tile: k-step `part` of each chunk in both
+  // halves of K (the same bytes feed both). Two: k-steps 2 (part / 2) and
+  // 2 (part / 2) + 1 in the low (part even) or the high (part odd) half, so
+  // that the sums of 16 rows fit in 64 registers.
+  constexpr int HALVES = MT == 1 ? 2 : 1;
+  constexpr int STEPS = 3 - HALVES;
+  const int h0 = MT == 1 ? 0 : warp_part() & 1;
+  const int step0 = MT == 1 ? warp_part() : 2 * (warp_part() >> 1);
+  // acc: this warp's sums over its rows of the current group, per half it
+  // takes; total: the scaled sums of the groups before it.
+  float acc[HALVES][2][MT][4], total[2][MT][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int m = m0 + 8 * mt + g;
-    row_ok[mt] = m < M;
-    xrow[mt] = x + static_cast<int64_t>(row_ok[mt] ? m : 0) * K;
-  }
-
-  float total[TILES][MT][4];
-#pragma unroll
-  for (int j = 0; j < TILES; ++j)
+  for (int j = 0; j < 2; ++j)
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) total[j][mt][e] = 0.f;
-
-  for (int pc = p_begin; pc < p_begin + kp_per_warp; pc += CHUNK_ROWS) {
-    // Packed rows 2q, 2q + 1, 2q + 8, 2q + 9 of each 16-row step.
-    uint2 raw[CHUNK_STEPS][4];
+      for (int e = 0; e < 4; ++e) {
+        total[j][mt][e] = 0.f;
 #pragma unroll
-    for (int s = 0; s < CHUNK_STEPS; ++s)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int p = pc + 16 * s + 2 * q + (r & 1) + 8 * (r >> 1);
-        raw[s][r] = col_ok ? __ldg(reinterpret_cast<const uint2*>(packed + static_cast<int64_t>(p) * N + col))
-                           : make_uint2(0, 0);
+        for (int hh = 0; hh < HALVES; ++hh) acc[hh][j][mt][e] = 0.f;
       }
 
 #pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int k0 = pc + hi * half;  // first contraction row of this slice
-      uint32_t b[CHUNK_STEPS][MT][2];
-#pragma unroll
-      for (int s = 0; s < CHUNK_STEPS; ++s)
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) load_x_frag(b[s][mt], xrow[mt], row_ok[mt], k0 + 16 * s + 2 * q);
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < chunks) load(i);
+    cp_async_commit();
+  }
+  int slot = 0;  // stage of this chunk; chunk + STAGES - 1 goes to the one before it
+  int group_left = group_chunks - p_begin / CHUNK_ROWS % group_chunks;  // chunks until the group ends
+  for (int chunk = 0; chunk < chunks; ++chunk) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // chunk landed for all; the stage of chunk - 1 is free
+    if (chunk + STAGES - 1 < chunks) load(slot == 0 ? STAGES - 1 : slot - 1);
+    cp_async_commit();
 
-      float acc[TILES][MT][4];
+    const unsigned char* st = base + slot * stage_bytes<MT>();
+    slot = slot == STAGES - 1 ? 0 : slot + 1;
+    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(st + W_STAGE_BYTES);
 #pragma unroll
-      for (int j = 0; j < TILES; ++j)
+    for (int t = 0; t < STEPS; ++t) {
+      uint32_t wv[4];
+      load_weight_words(wv, st, step0 + t);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
+      for (int r = 0; r < 4; ++r) wv[r] = int4_offset(wv[r]);
+      uint32_t b[HALVES][MT][2];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[j][mt][e] = 0.f;
-
+      for (int hh = 0; hh < HALVES; ++hh) load_x_frags<MT>(b[hh], xs + (h0 + hh) * 8 * MT * X_LD, step0 + t);
 #pragma unroll
-      for (int s = 0; s < CHUNK_STEPS; ++s) {
+      for (int j = 0; j < 2; ++j) {
+        uint32_t bytes[2];
+        gather_int4(bytes, wv, j);
 #pragma unroll
-        for (int j = 0; j < TILES; ++j) {
-          // Tile j: A row g is packed column byte 2j of the lane's 8, row g + 8 byte 2j + 1.
-          const int p = 2 * (j & 1);
-          const int shift = 4 * hi;  // the high nibbles move to the low bits
-          const uint32_t w0 = half_of(raw[s][0], j >> 1) >> shift;
-          const uint32_t w1 = half_of(raw[s][1], j >> 1) >> shift;
-          const uint32_t w2 = half_of(raw[s][2], j >> 1) >> shift;
-          const uint32_t w3 = half_of(raw[s][3], j >> 1) >> shift;
+        for (int hh = 0; hh < HALVES; ++hh) {
           uint32_t a[4];
-          a[0] = int4x2_to_bf16x2(pair_bytes(w0, w1, p));
-          a[1] = int4x2_to_bf16x2(pair_bytes(w0, w1, p + 1));
-          a[2] = int4x2_to_bf16x2(pair_bytes(w2, w3, p));
-          a[3] = int4x2_to_bf16x2(pair_bytes(w2, w3, p + 1));
+          a_frag_int4(a, bytes, 4 * (h0 + hh));
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma_16816(acc[j][mt], a, b[s][mt][0], b[s][mt][1]);
+          for (int mt = 0; mt < MT; ++mt) mma_16816(acc[hh][j][mt], a, b[hh][mt][0], b[hh][mt][1]);
         }
       }
+    }
 
-      // Scale this 64-row slice of one group into the total. C rows g and
-      // g + 8 of tile j are columns col + 2j and col + 2j + 1.
-      const float* srow = scales + static_cast<int64_t>(k0 / group) * N + col;
+    // At the end of a group (and of the split), scale the group's sums into
+    // the total: C rows g and g + 8 of tile j are the lane's columns
+    // 4 g + 2 j and 4 g + 2 j + 1.
+    if (--group_left == 0 || chunk == chunks - 1) {
+      group_left = group_chunks;
+      const float* ss = reinterpret_cast<const float*>(st + W_STAGE_BYTES + x_stage_bytes<MT>());
 #pragma unroll
-      for (int j = 0; j < TILES; ++j) {
-        const float2 sc = col_ok ? __ldg(reinterpret_cast<const float2*>(srow + 2 * j)) : make_float2(0.f, 0.f);
+      for (int hh = 0; hh < HALVES; ++hh) {
+        const float4 sc = *reinterpret_cast<const float4*>(ss + (h0 + hh) * BLOCK_N + warp_col() + 4 * (lane >> 2));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          total[j][mt][0] += acc[j][mt][0] * sc.x;
-          total[j][mt][1] += acc[j][mt][1] * sc.x;
-          total[j][mt][2] += acc[j][mt][2] * sc.y;
-          total[j][mt][3] += acc[j][mt][3] * sc.y;
+          total[0][mt][0] += acc[hh][0][mt][0] * sc.x;
+          total[0][mt][1] += acc[hh][0][mt][1] * sc.x;
+          total[0][mt][2] += acc[hh][0][mt][2] * sc.y;
+          total[0][mt][3] += acc[hh][0][mt][3] * sc.y;
+          total[1][mt][0] += acc[hh][1][mt][0] * sc.z;
+          total[1][mt][1] += acc[hh][1][mt][1] * sc.z;
+          total[1][mt][2] += acc[hh][1][mt][2] * sc.w;
+          total[1][mt][3] += acc[hh][1][mt][3] * sc.w;
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[hh][j][mt][e] = 0.f;
         }
       }
     }
   }
-  block_partial_store<TILES, MT>(red, total, partial, split, m0, n0, M, N);
+  finish_tile<MT>(total, base, nullptr, partial, out, counters, M, N);
 }
+
+bool configured[2] = {false, false};
 
 template <int MT>
 cudaError_t launch(const __nv_bfloat16* x, const int8_t* packed, const float* scales, float* partial,
-                   int M, int N, int K, int group, int splits, cudaStream_t stream) {
-  const dim3 grid((N + BLOCK_N - 1) / BLOCK_N, splits, (M + 8 * MT - 1) / (8 * MT));
-  int4_matmul_kernel<MT><<<grid, NUM_THREADS, 0, stream>>>(x, packed, scales, partial, M, N, K,
-                                                           group, (K / 2) / splits);
+                   __nv_bfloat16* out, int* counters, int M, int N, int K, int group, int splits,
+                   cudaStream_t stream) {
+  cudaError_t err = allow_smem(int4_matmul_kernel<MT>, smem_bytes<MT>(), &configured[MT - 1]);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + 8 * MT - 1) / (8 * MT), (N + BLOCK_N - 1) / BLOCK_N, splits);
+  int4_matmul_kernel<MT><<<grid, DQ_THREADS, smem_bytes<MT>(), stream>>>(
+      x, packed, scales, partial, out, counters, M, N, K, group, K / 2 / CHUNK_ROWS / splits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x [M, K] bf16, packed [K/2, N] int8, scales [K/group, N] f32, partial
-// [splits, M, N] f32 scratch, out [M, N] bf16; all contiguous. Returns the
-// first CUDA error.
+// x [M, K] bf16, packed [K/2, N] int8, scales [K/group, N] f32, out [M, N]
+// bf16; with splits > 1, partial [splits, M, N] f32 scratch and counters
+// (one int per (row tile, column block), zero, and left zero); all
+// contiguous and 16-byte aligned. Returns the first CUDA error.
 extern "C" int int4_matmul(const void* x, const void* packed, const void* scales, void* partial,
-                           void* out, int M, int N, int K, int group, int splits, void* stream) {
-  if (M < 1 || N % 16 || splits < 1 || group < CHUNK_ROWS || group % CHUNK_ROWS ||
-      (K / 2) % group || K % 2 || (K / 2) % (splits * NUM_WARPS * CHUNK_ROWS)) {
+                           void* out, void* counters, int M, int N, int K, int group, int rows_per_tile,
+                           int splits, void* stream) {
+  if (M < 1 || N % 16 || splits < 1 || K % 2 || group < CHUNK_ROWS || group % CHUNK_ROWS ||
+      (K / 2) % group || (K / 2) % (splits * CHUNK_ROWS) || rows_per_tile != (M <= 8 ? 8 : 16) ||
+      (splits > 1 && (partial == nullptr || counters == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -179,9 +228,22 @@ extern "C" int int4_matmul(const void* x, const void* packed, const void* scales
   const auto* pb = static_cast<const int8_t*>(packed);
   const auto* sf = static_cast<const float*>(scales);
   auto* pf = static_cast<float*>(partial);
-  cudaError_t err = M <= 8 ? launch<1>(xb, pb, sf, pf, M, N, K, group, splits, s)
-                           : launch<2>(xb, pb, sf, pf, M, N, K, group, splits, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_splitk_reduce(pf, nullptr, static_cast<__nv_bfloat16*>(out), M, N,
-                                               splits, s));
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  auto* ct = static_cast<int*>(counters);
+  return static_cast<int>(M <= 8 ? launch<1>(xb, pb, sf, pf, ob, ct, M, N, K, group, splits, s)
+                                 : launch<2>(xb, pb, sf, pf, ob, ct, M, N, K, group, splits, s));
+}
+
+// Registers, local bytes, dynamic shared memory and resident blocks per SM
+// of the kernel for `rows_per_tile` (8 or 16) rows.
+extern "C" int int4_matmul_info(int rows_per_tile, int* out) {
+  if (rows_per_tile == 8) {
+    cudaError_t err = allow_smem(int4_matmul_kernel<1>, smem_bytes<1>(), &configured[0]);
+    return static_cast<int>(err != cudaSuccess ? err : kernel_info(int4_matmul_kernel<1>, smem_bytes<1>(), out));
+  }
+  if (rows_per_tile == 16) {
+    cudaError_t err = allow_smem(int4_matmul_kernel<2>, smem_bytes<2>(), &configured[1]);
+    return static_cast<int>(err != cudaSuccess ? err : kernel_info(int4_matmul_kernel<2>, smem_bytes<2>(), out));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -12,141 +12,148 @@
 // AR token, or 16 flow-suffix rows per request), so a call does at most
 // 2 * 128 flops per weight byte, below the card's ~295 flop/byte bf16 ridge,
 // and at 1 or 16 rows far below it. The least time is the weight's K * N
-// bytes (plus x, scale and out) at 3.35 TB/s.
+// bytes (plus x, scale and out) at 3.35 TB/s. To reach it the card needs
+// some 25 KB of loads in flight on every SM all the time (3.35 TB/s over 132
+// SMs at ~1 us of loaded latency), and the fixed cost of a call must stay
+// small beside bounds of 1-20 us.
 //
-// Design (a simple, correct first version; cp.async/TMA pipelining and wgmma
-// come later):
-// - the product is computed transposed, out^T = W^T . x^T, with bf16
-//   mma.sync m16n8k16 and f32 accumulation: the weight is the 16-wide A side
-//   and x the 8-wide B side, so 1 to 8 rows take one B tile and 9 to 16 two;
-//   more rows take more blocks along grid z (each re-reads the weight);
-// - the weight is read once, coalesced, straight into registers: a lane
-//   loads 16 neighbouring output columns of a contraction row in one
-//   16-byte load, eight lanes cover 128 bytes of the row; the A rows of the
-//   mma are mapped to those columns (dequant_matmul_common.cuh). A warp
-//   issues the 16 loads of 64 contraction rows before it converts any;
-// - conversion to bf16 without the slow int-to-float unit: the byte is
-//   spliced into the mantissa of bf16 128.0 and the sign moved into the
-//   subtrahend (one byte permute, two logic ops and one bf16x2 subtract per
-//   two weights, all exact);
-// - a block of 4 warps owns 128 output columns and up to 16 rows; its warps
-//   take consecutive slices of the contraction axis and their partial sums
-//   meet in shared memory in a fixed order. The Pallas grid carries the
-//   accumulator along K in VMEM; here K is also split across blocks
-//   (split-K) until the grid has two blocks per SM, since 128-column tiles of
-//   an N = 2048 weight give only 16 blocks for 132 SMs. A second pass adds
-//   the splits in order, applies the scale and casts: the same inputs give
-//   the same bits on every run (no atomics);
-// - ragged edges: rows past M are zero in registers, columns past N are
-//   skipped (N must be a multiple of 16, the vocab head's 257,152 is 128 *
-//   2009); K must be a multiple of 256 (a block's 4 warps x 64 rows), which
-//   every quantized weight of LAP-3B is. The wrapper raises otherwise.
+// Design (dequant_matmul_common.cuh has the ring, the layout and the split
+// sum):
+// - a block of 16 warps owns 128 columns, a tile of up to 16 rows of x (more
+//   rows take more row tiles along grid x, next to each other in launch
+//   order so that they find the weight in L2) and one split of K; it streams
+//   64-row chunks of the weight (8 KB) and of its rows of x through a
+//   4-stage cp.async ring: 24 KB in flight a block, and the x rows are read
+//   from global memory once a block;
+// - each warp converts the 16 x 32 weights of its k-step and columns of a
+//   chunk from shared memory (the byte is spliced into the mantissa of bf16
+//   128.0 and the sign moved into the subtrahend: one byte permute, two
+//   logic ops and one bf16x2 subtract per two weights, all exact) and feeds
+//   mma.sync m16n8k16 with the weight on the 16-wide side;
+// - the wrapper's plan (ops/int8_matmul.py, launch_plan) splits K until the
+//   grid keeps 40 KB of weight in flight per SM, or the whole weight if it is
+//   smaller; the splits' partials meet inside the kernel (one launch a call)
+//   in a fixed order, and the scale is applied to their f32 sum;
+// - ragged edges: rows past M are zero in shared memory, columns past N are
+//   zero and skipped (N must be a multiple of 16, the vocab head's 257,152 is
+//   128 * 2009); K must be a multiple of 64. The wrapper raises otherwise.
 
 #include "dequant_matmul_common.cuh"
 
 namespace {
 
-constexpr int TILES = 8;  // 16-column mma tiles per warp: 128 columns, one 16-byte load a lane
-constexpr int BLOCK_N = 16 * TILES;
+template <int MT>
+__host__ __device__ constexpr int stage_bytes() {
+  return W_STAGE_BYTES + 8 * MT * ROW_BYTES;
+}
+template <int MT>
+__host__ __device__ constexpr int smem_bytes() {
+  return STAGES * stage_bytes<MT>();
+}
 
 template <int MT>
-__global__ void __launch_bounds__(NUM_THREADS)
+__global__ void __launch_bounds__(DQ_THREADS, DQ_MIN_BLOCKS)
     int8_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-                       float* __restrict__ partial, int M, int N, int K, int k_per_block) {
-  __shared__ float red[NUM_WARPS * 8 * MT * (BLOCK_N + 4)];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int q = lane & 3;
-  const int n0 = blockIdx.x * BLOCK_N;
-  const int split = blockIdx.y;
-  const int m0 = blockIdx.z * 8 * MT;
-  const int k_per_warp = k_per_block / NUM_WARPS;
-  const int k_begin = split * k_per_block + warp * k_per_warp;
+                       const float* __restrict__ scale, float* __restrict__ partial,
+                       __nv_bfloat16* __restrict__ out, int* __restrict__ counters, int M, int N,
+                       int K, int chunks) {
+  extern __shared__ uint4 smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem);
+  const int m0 = blockIdx.x * 8 * MT;
+  const int k_begin = blockIdx.z * chunks * CHUNK_ROWS;
+  WeightCopy wcopy(w, k_begin, blockIdx.y * BLOCK_N, N);
+  XCopy<8 * MT> xcopy(x, m0, M, K, k_begin);
+  auto load = [&](int slot) {
+    unsigned char* st = base + slot * stage_bytes<MT>();
+    wcopy.issue(st, N);
+    xcopy.issue(st + W_STAGE_BYTES);
+  };
 
-  const int col = n0 + 16 * g;  // this lane's 16 columns
-  const bool col_ok = col < N;
-  const __nv_bfloat16* xrow[MT];
-  bool row_ok[MT];
+  float c[2][MT][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int m = m0 + 8 * mt + g;
-    row_ok[mt] = m < M;
-    xrow[mt] = x + static_cast<int64_t>(row_ok[mt] ? m : 0) * K;
-  }
-
-  float c[TILES][MT][4];
-#pragma unroll
-  for (int j = 0; j < TILES; ++j)
+  for (int j = 0; j < 2; ++j)
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) c[j][mt][e] = 0.f;
 
-  for (int kc = k_begin; kc < k_begin + k_per_warp; kc += CHUNK_ROWS) {
-    // Contraction rows 2q, 2q + 1, 2q + 8, 2q + 9 of each 16-row step.
-    uint4 raw[CHUNK_STEPS][4];
 #pragma unroll
-    for (int s = 0; s < CHUNK_STEPS; ++s)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int k = kc + 16 * s + 2 * q + (r & 1) + 8 * (r >> 1);
-        raw[s][r] = col_ok ? __ldg(reinterpret_cast<const uint4*>(w + static_cast<int64_t>(k) * N + col))
-                           : make_uint4(0, 0, 0, 0);
-      }
-    uint32_t b[CHUNK_STEPS][MT][2];
-#pragma unroll
-    for (int s = 0; s < CHUNK_STEPS; ++s)
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) load_x_frag(b[s][mt], xrow[mt], row_ok[mt], kc + 16 * s + 2 * q);
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < chunks) load(i);
+    cp_async_commit();
+  }
+  int slot = 0;  // stage of this chunk; chunk + STAGES - 1 goes to the one before it
+  for (int chunk = 0; chunk < chunks; ++chunk) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // chunk landed for all; the stage of chunk - 1 is free
+    if (chunk + STAGES - 1 < chunks) load(slot == 0 ? STAGES - 1 : slot - 1);
+    cp_async_commit();
 
+    const unsigned char* st = base + slot * stage_bytes<MT>();
+    slot = slot == STAGES - 1 ? 0 : slot + 1;
+    uint32_t wv[4];
+    load_weight_words(wv, st, warp_part());
+    uint32_t b[MT][2];
+    load_x_frags<MT>(b, reinterpret_cast<const __nv_bfloat16*>(st + W_STAGE_BYTES), warp_part());
 #pragma unroll
-    for (int s = 0; s < CHUNK_STEPS; ++s) {
+    for (int j = 0; j < 2; ++j) {
+      uint32_t a[4];
+      a_frag_int8(a, wv, j);
 #pragma unroll
-      for (int j = 0; j < TILES; ++j) {
-        // Tile j: A row g is column byte 2j of the lane's 16, row g + 8 byte 2j + 1.
-        const int p = 2 * (j & 1);
-        const uint32_t w0 = word_of(raw[s][0], j >> 1);
-        const uint32_t w1 = word_of(raw[s][1], j >> 1);
-        const uint32_t w2 = word_of(raw[s][2], j >> 1);
-        const uint32_t w3 = word_of(raw[s][3], j >> 1);
-        uint32_t a[4];
-        a[0] = int8x2_to_bf16x2(pair_bytes(w0, w1, p));
-        a[1] = int8x2_to_bf16x2(pair_bytes(w0, w1, p + 1));
-        a[2] = int8x2_to_bf16x2(pair_bytes(w2, w3, p));
-        a[3] = int8x2_to_bf16x2(pair_bytes(w2, w3, p + 1));
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_16816(c[j][mt], a, b[s][mt][0], b[s][mt][1]);
-      }
+      for (int mt = 0; mt < MT; ++mt) mma_16816(c[j][mt], a, b[mt][0], b[mt][1]);
     }
   }
-  block_partial_store<TILES, MT>(red, c, partial, split, m0, n0, M, N);
+  finish_tile<MT>(c, base, scale, partial, out, counters, M, N);
 }
 
+bool configured[2] = {false, false};
+
 template <int MT>
-cudaError_t launch(const __nv_bfloat16* x, const int8_t* w, float* partial, int M, int N, int K,
-                   int splits, cudaStream_t stream) {
-  const dim3 grid((N + BLOCK_N - 1) / BLOCK_N, splits, (M + 8 * MT - 1) / (8 * MT));
-  int8_matmul_kernel<MT><<<grid, NUM_THREADS, 0, stream>>>(x, w, partial, M, N, K, K / splits);
+cudaError_t launch(const __nv_bfloat16* x, const int8_t* w, const float* scale, float* partial,
+                   __nv_bfloat16* out, int* counters, int M, int N, int K, int splits,
+                   cudaStream_t stream) {
+  cudaError_t err = allow_smem(int8_matmul_kernel<MT>, smem_bytes<MT>(), &configured[MT - 1]);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + 8 * MT - 1) / (8 * MT), (N + BLOCK_N - 1) / BLOCK_N, splits);
+  int8_matmul_kernel<MT><<<grid, DQ_THREADS, smem_bytes<MT>(), stream>>>(
+      x, w, scale, partial, out, counters, M, N, K, K / CHUNK_ROWS / splits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x [M, K] bf16, w [K, N] int8, scale [N] f32, partial [splits, M, N] f32
-// scratch, out [M, N] bf16; all contiguous. Returns the first CUDA error.
-extern "C" int int8_matmul(const void* x, const void* w, const void* scale, void* partial,
-                           void* out, int M, int N, int K, int splits, void* stream) {
-  if (M < 1 || N % 16 || splits < 1 || K % (splits * NUM_WARPS * CHUNK_ROWS)) {
+// x [M, K] bf16, w [K, N] int8, scale [N] f32, out [M, N] bf16; with
+// splits > 1, partial [splits, M, N] f32 scratch and counters (one int per
+// (row tile, column block), zero, and left zero); all contiguous and 16-byte
+// aligned. Returns the first CUDA error.
+extern "C" int int8_matmul(const void* x, const void* w, const void* scale, void* partial, void* out,
+                           void* counters, int M, int N, int K, int rows_per_tile, int splits,
+                           void* stream) {
+  if (M < 1 || N % 16 || splits < 1 || K % (splits * CHUNK_ROWS) ||
+      rows_per_tile != (M <= 8 ? 8 : 16) || (splits > 1 && (partial == nullptr || counters == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* wb = static_cast<const int8_t*>(w);
+  const auto* sf = static_cast<const float*>(scale);
   auto* pf = static_cast<float*>(partial);
-  cudaError_t err = M <= 8 ? launch<1>(xb, wb, pf, M, N, K, splits, s)
-                           : launch<2>(xb, wb, pf, M, N, K, splits, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_splitk_reduce(pf, static_cast<const float*>(scale),
-                                               static_cast<__nv_bfloat16*>(out), M, N, splits, s));
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  auto* ct = static_cast<int*>(counters);
+  return static_cast<int>(M <= 8 ? launch<1>(xb, wb, sf, pf, ob, ct, M, N, K, splits, s)
+                                 : launch<2>(xb, wb, sf, pf, ob, ct, M, N, K, splits, s));
+}
+
+// Registers, local bytes, dynamic shared memory and resident blocks per SM
+// of the kernel for `rows_per_tile` (8 or 16) rows.
+extern "C" int int8_matmul_info(int rows_per_tile, int* out) {
+  if (rows_per_tile == 8) {
+    cudaError_t err = allow_smem(int8_matmul_kernel<1>, smem_bytes<1>(), &configured[0]);
+    return static_cast<int>(err != cudaSuccess ? err : kernel_info(int8_matmul_kernel<1>, smem_bytes<1>(), out));
+  }
+  if (rows_per_tile == 16) {
+    cudaError_t err = allow_smem(int8_matmul_kernel<2>, smem_bytes<2>(), &configured[1]);
+    return static_cast<int>(err != cudaSuccess ? err : kernel_info(int8_matmul_kernel<2>, smem_bytes<2>(), out));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -22,22 +22,20 @@ launches the kernel or raises: the kernel takes bfloat16 activations only.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
-from lap_tpu_torch.ops.int8_matmul import check_cuda_operands, float32_reciprocal, rows_per_block, split_k
+from lap_tpu_torch.ops.int8_matmul import float32_reciprocal, kernel_info, launch_kernel
 
 SOURCE = "int4_matmul.cu"
-# Packed rows one block of the kernel covers at least (4 warps x 64); the
-# kernel's group size must be a multiple of 64.
-PACKED_UNIT = 256
-GROUP_MULTIPLE = 64
 
 # Launches of the CUDA kernel since the last reset (``launches = 0``).
 launches = 0
 
-_SIGNATURE = {"int4_matmul": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
+_SIGNATURE = {
+    "int4_matmul": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "int4_matmul_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+}
 
 
 def unpack_nibbles(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -99,28 +97,16 @@ def _check_shapes(x, packed, scales):
         raise ValueError("x, packed and scales must be on one device")
 
 
+def info(rows_per_tile: int) -> dict:
+    """Registers, spills, shared memory and resident blocks per SM of the
+    compiled kernel (``int8_matmul.kernel_info``)."""
+    return kernel_info(SOURCE, _SIGNATURE, "int4", rows_per_tile)
+
+
 def _launch(x, packed, scales):
     global launches
-    x = x.contiguous()
-    m, k = x.shape
-    n = packed.shape[1]
-    check_cuda_operands(x, 2 * PACKED_UNIT, 16, packed, scales)
-    group = k // scales.shape[0]
-    if group % GROUP_MULTIPLE:
-        raise ValueError(f"the CUDA kernel takes groups of a multiple of {GROUP_MULTIPLE} rows, got {group}")
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = split_k(math.ceil(m / rows_per_block(m)), math.ceil(n / 64), (k // 2) // PACKED_UNIT, sms)
-    from lap_tpu_torch import cuda_build
-
-    lib = cuda_build.load(SOURCE, _SIGNATURE)
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-    err = lib.int4_matmul(
-        x.data_ptr(), packed.data_ptr(), scales.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        m, n, k, group, splits, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"int4_matmul launch failed with cudaError {err}")
+    group = x.shape[1] // scales.shape[0]
+    out = launch_kernel(SOURCE, _SIGNATURE, "int4", x.contiguous(), (packed, scales), packed.shape[1], group)
     launches += 1
     return out
 

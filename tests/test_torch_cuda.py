@@ -278,7 +278,7 @@ def _assert_dequant_close(got, ref):
 
 
 @pytest.mark.parametrize("k,n", QUANT_SHAPES)
-@pytest.mark.parametrize("m", [1, 16, 100])
+@pytest.mark.parametrize("m", [1, 16, 100, 128])
 def test_dequant_kernels_match_plain(cuda, m, k, n):
     from lap_tpu_torch.ops import int4_matmul as i4
     from lap_tpu_torch.ops import int8_matmul as i8
@@ -298,24 +298,65 @@ def test_dequant_kernels_match_plain(cuda, m, k, n):
 
 
 def test_dequant_kernels_are_deterministic_and_raise_on_what_they_cannot_take(cuda):
+    """Two calls give the same bits at one split (the vocab head: bf16 written
+    directly) and at many (MLP down: the last block of a tile adds the
+    splits in order), for 1 to 128 rows; interleaved int8 and int4 calls of
+    different shapes leave the split-K arrival counters at zero."""
     from lap_tpu_torch.ops import int4_matmul as i4
     from lap_tpu_torch.ops import int8_matmul as i8
 
     g = torch.Generator(device=cuda).manual_seed(3)
+    for k, n, one_split in ((2048, 257152, True), (16384, 2048, False)):
+        w = torch.randn((k, n), generator=g, device=cuda)
+        w8, w4 = i8.quantize_int8(w), i4.quantize_int4(w)
+        del w
+        for m in (1, 16, 100, 128):
+            x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+            for kind, fn, weights in (("int8", i8.int8_matmul, w8), ("int4", i4.int4_matmul, w4)):
+                plan = i8.launch_plan(kind, m, k, n, 256 if kind == "int4" else None,
+                                      torch.cuda.get_device_properties(cuda).multi_processor_count)
+                assert (plan["splits"] == 1) == one_split, plan
+                assert torch.equal(fn(x, *weights), fn(x, *weights)), (kind, k, n, m)
+        del w8, w4
     w = torch.randn((2048, 2048), generator=g, device=cuda)
     x = torch.randn((16, 2048), generator=g, device=cuda).to(torch.bfloat16)
     w8, w4 = i8.quantize_int8(w), i4.quantize_int4(w)
+    wd = torch.randn((4096, 1024), generator=g, device=cuda)
+    wd8, wd4 = i8.quantize_int8(wd), i4.quantize_int4(wd)
+    xd = torch.randn((100, 4096), generator=g, device=cuda).to(torch.bfloat16)
+    for _ in range(3):
+        i8.int8_matmul(x, *w8)
+        i4.int4_matmul(xd, *wd4)
+        i4.int4_matmul(x[:1], *w4)
+        i8.int8_matmul(xd[:7], *wd8)
+    torch.cuda.synchronize()
+    assert int(i8.splitk_counters(cuda).abs().sum()) == 0
     assert torch.equal(i8.int8_matmul(x, *w8), i8.int8_matmul(x, *w8))  # split-K sums in a fixed order
     assert torch.equal(i4.int4_matmul(x, *w4), i4.int4_matmul(x, *w4))
     with pytest.raises(ValueError, match="bfloat16"):
         i8.int8_matmul(x.float(), *w8)  # f32 activations: raise, never the plain version
     with pytest.raises(ValueError, match="bfloat16"):
         i4.int4_matmul(x.float(), *w4)
-    w_odd = torch.randn((192, 256), generator=g, device=cuda)
+    w_odd = torch.randn((160, 256), generator=g, device=cuda)
     with pytest.raises(ValueError):
-        i8.int8_matmul(x[:, :192], *i8.quantize_int8(w_odd))  # K % 256 != 0
+        i8.int8_matmul(x[:, :160], *i8.quantize_int8(w_odd))  # K % 64 != 0
     with pytest.raises(ValueError):
         i4.int4_matmul(x[:, :64], *i4.quantize_int4(w_odd[:64], group_size=32))
+
+
+@pytest.mark.parametrize("rows_per_tile", [8, 16])
+def test_dequant_plan_matches_the_compiled_kernels(cuda, rows_per_tile):
+    """The wrapper's launch plan has the compiled kernels' shared memory and
+    counts on no more resident blocks per SM than fit, and the kernels spill
+    nothing."""
+    from lap_tpu_torch.ops import int4_matmul as i4
+    from lap_tpu_torch.ops import int8_matmul as i8
+
+    for kind, module in (("int8", i8), ("int4", i4)):
+        info = module.info(rows_per_tile)
+        plan = i8.launch_plan(kind, rows_per_tile, 2048, 2048, 256 if kind == "int4" else None)
+        assert info["smem"] == plan["smem"] and info["blocks_per_sm"] >= plan["blocks_per_sm"], (info, plan)
+        assert info["local_bytes"] == 0, info
 
 
 def test_quantized_feed_forward_goes_through_the_kernel(cuda):
