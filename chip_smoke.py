@@ -14,24 +14,32 @@ just after. Phases, in order; any failure exits non-zero:
  2. hold each kernel (the flash forward; the backward's delta, dQ, dK/dV and
     GQA group-sum kernels; the int8 and int4 dequant matmuls) against its
     plain PyTorch version on the card, on the paths' shapes and edge cases,
-    with the tolerances stated below; the training call is held at the
-    path's batch and with the strides the model gives it (q and the mask are
-    the first 692 rows of the joint 708-row tensors), forward (out, lse) and
-    backward, and two backward calls there and at GQA group 4 must give the
-    same bits; the dequant matmuls at 1, 16, 100 and 128 rows for every
-    quantized weight shape, two calls giving the same bits at each, and
-    their split-K arrival counters back at zero after all the calls; print
-    the backward kernels' registers, spills, resident blocks per SM and
-    waves, and the dequant kernels' beside their launch plan;
+    with the tolerances stated below; the forward at batch 1 on the flow
+    prefix and the right-aligned AR prefill (leading dead rows, 64 masked
+    decode slots), and two forward calls at the prefill and the training
+    call must give the same bits; the training call
+    is held at the path's batch and with the strides the model gives it (q
+    and the mask are the first 692 rows of the joint 708-row tensors),
+    forward (out, lse) and backward, and two backward calls there and at GQA
+    group 4 must give the same bits; the dequant matmuls at 1, 16, 100 and
+    128 rows for every quantized weight shape, two calls giving the same
+    bits at each, and their split-K arrival counters back at zero after all
+    the calls; print the forward's and the backward kernels' registers,
+    spills, resident blocks per SM and waves beside their plans, and the
+    dequant kernels' beside their launch plan;
  3. time each kernel, its plain version and one PyTorch library call that
     computes the same function (a yardstick the port never calls), beside the
     least time the card could take (``bound_ms``); the dequant matmuls (every
     quantized shape at the rows its path gives it, the three largest at 16
     rows too, and MLP gate/up at 100 and 128 rows), the delta kernel and the
-    group-sum pass by their device time, the backward
-    last, at the batch the training path ran with: each kernel alone and the
-    whole ``flash_attention_backward`` as the path calls it, beside autograd
-    through ``F.scaled_dot_product_attention``;
+    group-sum pass by their device time, the flash forward at the serving
+    prefill by CUDA events around a loop of calls (``ms``; at batch 1 that
+    is the host's time to launch a call) and by its device time
+    (``device_ms``), and the flash kernels last, at the batch the training
+    path ran with: the forward beside SDPA's forward (both ways), each
+    backward kernel alone and the whole ``flash_attention_backward`` as the
+    path calls it, beside autograd through
+    ``F.scaled_dot_product_attention``;
  4. run the dummy-size model in f32 on the card and on the CPU with the same
     weights (the CPU path is what the tests hold against the JAX package):
     ``sample_actions``, AR ``sample_tokens``, and one training pass (loss,
@@ -152,6 +160,12 @@ COLD_BYTES = 256e6
 # may drop a few events at the ends of a trace (10 of 4,673 dequant kernels
 # once on an H100, and a few of every other family in the same trace).
 PROFILE_KEPT_SHARE = 0.99
+# A profile idles this long on the host before and after its calls: the
+# profiler keeps only the device events that fall inside its window, and one
+# short timing profile on an H100 once kept none (a dequant time of 0).
+PROFILE_PAD_S = 0.01
+# A profile that holds no device event is taken again, at most this often.
+PROFILE_ATTEMPTS = 3
 # AR serving at batch 1: a fixed budget and no EOS stop, so the work does not
 # depend on what random weights emit.
 AR_STEPS = 64
@@ -183,6 +197,9 @@ PROMPT_LEN, PROMPT_VALID = 180, 40
 ACTION_HORIZON = 16
 LANGACT_START = 8  # first language-action slot of the synthetic training prompt
 TRAINING_CASE = "training_step"  # the kernel case with the training path's shape, batch and strides
+PREFILL_CASE = "path_prefix_lm"  # the kernel case of the serving prefill (flow prefix mask)
+# Forward cases run twice to show that two calls give the same bits.
+FWD_DETERMINISM_CASES = (PREFILL_CASE, TRAINING_CASE)
 # Backward cases run twice to show that two calls give the same bits.
 DETERMINISM_CASES = (TRAINING_CASE, "gqa_group4_h128")
 
@@ -247,6 +264,22 @@ def prefix_lm_mask(valid, ar_tail, size, device):
     return make_attn_mask(input_mask, mask_ar).contiguous()
 
 
+def ar_prefill_mask(device):
+    """The mask of the AR prefill as ``LAP.ar_prefill`` passes it: the
+    prefix-LM mask right-aligned (the 140 padding rows and keys first, all
+    masked) and padded with ``AR_STEPS`` masked decode slots, [1, 692, 756]."""
+    import torch
+
+    from lap_tpu_torch.models.lap_model import left_to_right_align
+
+    valid = 512 + PROMPT_VALID
+    mask = prefix_lm_mask([valid], [0], LAP_PREFIX, device)
+    input_mask = torch.arange(LAP_PREFIX, device=device)[None] < valid
+    x = torch.zeros((1, LAP_PREFIX, 1), device=device)
+    _, _, aligned = left_to_right_align(x, input_mask, mask)
+    return torch.nn.functional.pad(aligned, (0, AR_STEPS))
+
+
 def kernel_cases(device):
     import torch
 
@@ -262,7 +295,8 @@ def kernel_cases(device):
     path_mask = prefix_lm_mask([512 + PROMPT_VALID], [0], LAP_PREFIX, device)
     return [
         # name, (B, T, S, N, K, H), mask
-        ("path_prefix_lm", (1, LAP_PREFIX, LAP_PREFIX, 8, 1, 256), path_mask),
+        (PREFILL_CASE, (1, LAP_PREFIX, LAP_PREFIX, 8, 1, 256), path_mask),
+        ("ar_prefill_right_aligned", (1, LAP_PREFIX, LAP_PREFIX + AR_STEPS, 8, 1, 256), ar_prefill_mask(device)),
         ("b2_unequal_padding", (2, 300, 300, 8, 1, 256), prefix_lm_mask([250, 180], [30, 12], 300, device)),
         ("gqa_k2", (1, 256, 256, 8, 2, 256), rand_mask(1, 256, 256, 0.7)),
         ("gqa_k8", (1, 200, 200, 8, 8, 256), rand_mask(1, 200, 200, 0.7)),
@@ -272,13 +306,28 @@ def kernel_cases(device):
     ]
 
 
+def sm_count(device) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def check_forward(name, q, k, v, mask, out, lse) -> float:
-    """The forward kernel's ``out`` and ``lse`` against the plain version."""
+    """The forward kernel's ``out`` and ``lse`` against the plain version;
+    a case in ``FWD_DETERMINISM_CASES`` is run again and must give the same
+    bits."""
     import torch
 
     from lap_tpu_torch.ops import flash_attention as fa
 
     (b, t, n, h), s, kh = q.shape, k.shape[1], k.shape[2]
+    plan = fa.forward_plan(b, t, s, n, kh, h, sm_count(q.device))
+    if name in FWD_DETERMINISM_CASES:
+        again = fa.flash_attention_forward(q, k, v, mask)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            raise AssertionError(f"{name}: two forward calls gave different bits")
+        log(f"kernel flash_attention_fwd case={name}: two calls give the same bits (out, lse)")
     ref_out, ref_lse = fa.flash_attention_plain(q, k, v, mask)
     err = (out.float() - ref_out.float()).abs()
     bound = OUT_ATOL + OUT_RTOL * ref_out.float().abs()
@@ -286,6 +335,7 @@ def check_forward(name, q, k, v, mask, out, lse) -> float:
     dead = ~mask.any(dim=-1)  # [B, T]
     log(
         f"kernel flash_attention_fwd case={name} shape=B{b} T{t} S{s} N{n} K{kh} H{h} "
+        f"grid={plan['grid']} "
         f"out_max_abs_err={err.max().item():.3e} lse_max_abs_err={lse_err:.3e} "
         f"dead_rows={int(dead.sum())} q_strides={tuple(q.stride())} mask_strides={tuple(mask.stride())}"
     )
@@ -297,7 +347,32 @@ def check_forward(name, q, k, v, mask, out, lse) -> float:
         raise AssertionError(f"{name}: lse differs by {lse_err} > {LSE_ATOL}")
     if dead.any() and out.float()[dead].abs().max().item() != 0.0:
         raise AssertionError(f"{name}: fully masked rows are not zero")
+    if dead.any() and not bool((lse.transpose(1, 2)[dead] == fa.MASK_VALUE).all()):
+        raise AssertionError(f"{name}: the lse of fully masked rows is not {fa.MASK_VALUE}")
     return err.max().item()
+
+
+def forward_occupancy(device):
+    """Registers, spills, resident blocks per SM and waves of the forward
+    kernel at the serving prefill and the training shape, from the compiled
+    kernel on this card, beside the launch plan."""
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    sms = sm_count(device)
+    info = fa.forward_info(256)
+    result = {}
+    for name, shape in (("prefill", (1, LAP_PREFIX, LAP_PREFIX, 8, 1, 256)),
+                        ("training", (TRAIN_BATCH, LAP_PREFIX, LAP_PREFIX + ACTION_HORIZON, 8, 1, 256))):
+        plan = fa.forward_plan(*shape, sms)
+        waves = plan["blocks"] / (sms * info["blocks_per_sm"]) if info["blocks_per_sm"] else math.inf
+        result[name] = dict(info, blocks=plan["blocks"], waves=waves)
+        log(f"occupancy flash_attention_fwd {name} H256: registers={info['registers']} (entry; setmaxnreg gives "
+            f"the consumers more) spill_bytes={info['local_bytes']} smem={info['smem']} (plan {plan['smem']}) "
+            f"blocks_per_sm={info['blocks_per_sm']} (plan {plan['blocks_per_sm']}) threads={plan['threads']} "
+            f"grid={plan['grid']} ({plan['blocks']} blocks) waves={waves:.3f} on {sms} SMs")
+        if info["smem"] != plan["smem"] or info["blocks_per_sm"] < plan["blocks_per_sm"]:
+            raise AssertionError(f"the forward's launch plan disagrees with the compiled kernel: {info} {plan}")
+    return result
 
 
 def check_flash_kernel(device):
@@ -330,35 +405,43 @@ def time_flash_kernel(device):
     k = torch.randn((b, t, kh, h), generator=g, device=device).to(torch.bfloat16)
     v = torch.randn((b, t, kh, h), generator=g, device=device).to(torch.bfloat16)
     kernel_ms = time_cuda(lambda: fa.flash_attention_forward(q, k, v, mask))
+    # The device time of the call's kernels (profiler): at batch 1 the host
+    # takes longer to launch a call than the card to run it, and CUDA events
+    # around a loop of calls time the host.
+    device_ms = device_ms_per_call([lambda: fa.flash_attention_forward(q, k, v, mask)], iters=50)
     plain_ms = time_cuda(lambda: fa.flash_attention_plain(q, k, v, mask), iters=10)
     # Yardstick only: one PyTorch call computing the same attention.
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     sdpa_mask = mask[:, None]
-    library_ms = time_cuda(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=True)
-    )
-    # Least time for the same work: only the unmasked (query, key) pairs need
-    # the two products (2 flops per multiply-add each); each input is read
-    # once and each output written once.
-    pairs = int(mask.sum())
-    flops = 4 * n * h * pairs
-    nbytes = (
-        q.numel() * 2 + k.numel() * 2 + v.numel() * 2 + mask.numel()
-        + q.numel() * 2 + b * n * t * 4
-    )
-    flops_ms = flops / PEAK_BF16_FLOPS * 1e3
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms = max(flops_ms, bytes_ms)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=True)
+
+    library_ms = time_cuda(sdpa)
+    library_device_ms = device_ms_per_call([sdpa], iters=50)
+    bound_ms, bound_by, flops_ms, bytes_ms = flash_forward_bound(mask, q, k, v)
     log(
         f"timing flash_attention_fwd B{b} T=S={t} N{n} K{kh} H{h}: kernel_ms={kernel_ms:.5f} "
-        f"plain_ms={plain_ms:.5f} library_ms(sdpa)={library_ms:.5f} bound_ms={bound_ms:.5f} "
-        f"(flops={flops} -> {flops_ms:.5f} ms, bytes={nbytes} -> {bytes_ms:.5f} ms; "
-        f"dense flops {4 * n * h * t * t})"
+        f"(device time {device_ms:.5f}) plain_ms={plain_ms:.5f} library_ms(sdpa)={library_ms:.5f} "
+        f"(device time {library_device_ms:.5f}) bound_ms={bound_ms:.5f} "
+        f"(flops -> {flops_ms:.5f} ms, bytes -> {bytes_ms:.5f} ms; dense flops {4 * n * h * t * t})"
     )
     return dict(
-        ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-        bound_by="operations" if flops_ms >= bytes_ms else "bytes",
+        ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+        library_device_ms=library_device_ms, bound_ms=bound_ms, bound_by=bound_by,
     )
+
+
+def flash_forward_bound(mask, q, k, v):
+    """Least time for one forward call, (ms, "operations" or "bytes",
+    flops_ms, bytes_ms): only the unmasked (query, key) pairs need the two
+    products, 4 N H flops a pair at 989 TFLOP/s (bf16); the bytes are q, k,
+    v and the mask read once, out and lse written once, at 3.35 TB/s."""
+    (b, t, n, h), pairs = q.shape, int(mask.sum())
+    flops_ms = 4 * n * h * pairs / PEAK_BF16_FLOPS * 1e3
+    nbytes = 2 * q.numel() * 2 + k.numel() * 2 + v.numel() * 2 + mask.numel() + b * n * t * 4
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(flops_ms, bytes_ms), "operations" if flops_ms >= bytes_ms else "bytes", flops_ms, bytes_ms
 
 
 def training_mask(batch, device):
@@ -568,7 +651,17 @@ def time_flash_backward(device, batch):
         lambda: fa.flash_attention_backward(q, k, v, mask, out, lse, dout, scale=scale), iters=20
     )
     pair_peak_mib = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+    # The forward at this shape (CUDA events, and device time), beside one
+    # PyTorch call computing the same attention (a yardstick only).
     fwd_ms = time_cuda(lambda: fa.flash_attention_forward(q, k, v, mask), iters=20)
+    fwd_device_ms = device_ms_per_call([lambda: fa.flash_attention_forward(q, k, v, mask)], iters=20)
+    qt_fwd, kt_fwd, vt_fwd = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa_forward():
+        return F.scaled_dot_product_attention(qt_fwd, kt_fwd, vt_fwd, attn_mask=mask[:, None], enable_gqa=True)
+
+    fwd_library_ms = time_cuda(sdpa_forward, iters=20)
+    fwd_library_device_ms = device_ms_per_call([sdpa_forward], iters=20)
     plain_ms = time_cuda(
         lambda: fa.flash_attention_backward_plain(q, k, v, mask, out, lse, dout, scale),
         iters=3, reps=3, warmup=1,
@@ -619,12 +712,20 @@ def time_flash_backward(device, batch):
         # The plain backward and the library call each give dq, dk and dv at once.
         results[name].update(library_ms=library_ms, plain_and_library_cover="dq+dkv", pair_ms=pair_ms)
     results["dkv"]["includes"] = "the group-sum pass"
+    fwd_bound_ms, fwd_bound_by, fwd_flops_ms, fwd_bytes_ms = flash_forward_bound(mask, q, k, v)
+    results["fwd"] = dict(ms=fwd_ms, device_ms=fwd_device_ms, library_ms=fwd_library_ms,
+                          library_device_ms=fwd_library_device_ms, bound_ms=fwd_bound_ms, bound_by=fwd_bound_by,
+                          batch=b)
+    log(f"timing flash_attention_fwd B{b} T{t} S{s} N{n} K{kh} H{h} (training shape, strided): "
+        f"kernel_ms={fwd_ms:.5f} (device time {fwd_device_ms:.5f}) library_ms(sdpa forward)={fwd_library_ms:.5f} "
+        f"(device time {fwd_library_device_ms:.5f}) bound_ms={fwd_bound_ms:.5f} ({fwd_bound_by}: "
+        f"flops {4 * n * h * pairs} -> {fwd_flops_ms:.5f} ms, bytes -> {fwd_bytes_ms:.5f} ms)")
     log(
         f"timing flash_attention_bwd B{b}: pair as the path calls it (dO copy, delta once, dq, dkv, pass) "
         f"kernel_ms={pair_ms:.5f} vs library_ms(sdpa backward, dq, dk, dv together)={library_ms:.5f} "
         f"(ratio {pair_ms / library_ms:.3f}); parts delta {delta_ms:.5f} + dq {dq_ms:.5f} + dkv with pass "
         f"{dkv_ms:.5f} (pass {group_sum_ms:.5f}) = {delta_ms + dq_ms + dkv_ms:.5f}; "
-        f"plain_ms(dq, dk, dv together)={plain_ms:.5f}; forward kernel at this shape ms={fwd_ms:.5f}; "
+        f"plain_ms(dq, dk, dv together)={plain_ms:.5f}; "
         f"peak memory of one call above its inputs {pair_peak_mib:.1f} MiB "
         f"(group-sum scratch {partial.numel() * 4 / 2**20:.1f} MiB)"
     )
@@ -707,6 +808,31 @@ def check_quant_kernels(device):
     return worst
 
 
+def profile_cuda(run, what: str):
+    """Run ``run()`` under the profiler, with ``PROFILE_PAD_S`` of idle time
+    on either side, until the trace holds device events, at most
+    ``PROFILE_ATTEMPTS`` times. Returns (the CUDA kernels of
+    ``key_averages()``, the host's ms for ``run()`` with a final sync);
+    raises if every attempt held none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.monotonic()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+            time.sleep(PROFILE_PAD_S)
+        events = [e for e in prof.key_averages() if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+        if events:
+            return events, wall_ms
+        log(f"profile: the trace of {what} holds no device event (attempt {attempt} of {PROFILE_ATTEMPTS})")
+    raise AssertionError(f"the profiler recorded no device time for {what} in {PROFILE_ATTEMPTS} attempts")
+
+
 def device_ms_per_call(fns, iters: int) -> float:
     """Device time per call, summed over every kernel a call launches
     (torch.profiler), cycling through ``fns``. A dequant call takes the host
@@ -715,16 +841,16 @@ def device_ms_per_call(fns, iters: int) -> float:
     launches per call: the trace may drop a few events at its ends (one call
     once gave a time below the bound from the sum of the recorded events)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for fn in fns[:3]:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for i in range(iters):
             fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+
+    events, _ = profile_cuda(run, f"{iters} timed calls")
     if any(e.count % iters for e in events):
         log(f"timing: the profile recorded {[e.count for e in events]} launches of its kernels for {iters} calls")
     return sum(e.device_time_total / e.count * max(1, round(e.count / iters)) for e in events) / 1e3
@@ -845,12 +971,12 @@ KERNEL_FAMILIES = (
 )
 
 
-def report_profile(prof, what: str, wall_ms: float, tokens: int = 0) -> int:
-    """Device time of one profiled call against its wall time: the largest
-    kernels by name, then every kernel summed by family, so that the families
-    add up to the whole device time (and per token, for an AR request).
-    Returns the launches of dequant kernels in the profile."""
-    events = [e for e in prof.key_averages() if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+def report_profile(events, what: str, wall_ms: float, tokens: int = 0) -> int:
+    """Device time of one profiled call (its CUDA kernels from
+    ``profile_cuda``) against its wall time: the largest kernels by name,
+    then every kernel summed by family, so that the families add up to the
+    whole device time (and per token, for an AR request). Returns the
+    launches of dequant kernels in the profile."""
     device_ms = sum(e.device_time_total for e in events) / 1e3
     n_kernels = sum(e.count for e in events)
     log(f"profile: one {what} wall_ms={wall_ms:.3f} device_kernel_ms={device_ms:.3f} kernels={n_kernels}"
@@ -878,15 +1004,8 @@ def report_profile(prof, what: str, wall_ms: float, tokens: int = 0) -> int:
 
 
 def profile_one_request(policy, request, what: str = "infer", tokens: int = 0) -> int:
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        policy.infer(request)
-        wall_ms = (time.monotonic() - t0) * 1e3
-    return report_profile(prof, what, wall_ms, tokens)
+    events, wall_ms = profile_cuda(lambda: policy.infer(request), what)
+    return report_profile(events, what, wall_ms, tokens)
 
 
 def reset_launch_counters() -> None:
@@ -1331,16 +1450,8 @@ def check_small_train_reference(device) -> None:
 
 
 def profile_one_step(trainer, batch) -> None:
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        trainer.run(batch, 1)
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3
-    report_profile(prof, "training step", wall_ms)
+    events, wall_ms = profile_cuda(lambda: trainer.run(batch, 1), "training step")
+    report_profile(events, "training step", wall_ms)
 
 
 def loss_and_grad_norm(trainer, batch, noise, time_):
@@ -1501,6 +1612,7 @@ def main() -> int:
                 log(f"build: {source}: {line.strip()}")
 
     occupancy = backward_occupancy(TRAIN_BATCH)
+    fwd_occupancy = forward_occupancy(device)
     max_err = check_flash_kernel(device)
     bwd_err = check_flash_backward(device)
     timing = time_flash_kernel(device)
@@ -1533,6 +1645,9 @@ def main() -> int:
             launches_flow=flow_launches, launches_quant_flow=sum(c[0] for c in quant_flow.values()),
             launches_ar=sum(c[0] for c in ar.values()), launches_training=train_launches["fwd"],
             max_abs_err=max(max_err, bwd_err["fwd"]), **timing,
+            timed_at=f"B=1 T=S={LAP_PREFIX} (serving prefill)",
+            training_shape={k: v for k, v in bwd_timing["fwd"].items() if k != "batch"},
+            occupancy=fwd_occupancy,
         ),
         dict(
             name="flash_attention_bwd_dq", route="cuda", source=csrc + fa.BWD_SOURCE,

@@ -42,7 +42,10 @@ launches_bwd_group_sum = 0
 
 _I64 = ctypes.c_longlong
 _SHAPE_STRIDES_SCALE_STREAM = [ctypes.c_int] * 6 + [_I64] * 11 + [ctypes.c_float, ctypes.c_void_p]
-_SIGNATURE = {"flash_attention_fwd": [ctypes.c_void_p] * 6 + _SHAPE_STRIDES_SCALE_STREAM}
+_SIGNATURE = {
+    "flash_attention_fwd": [ctypes.c_void_p] * 6 + _SHAPE_STRIDES_SCALE_STREAM,
+    "flash_attention_fwd_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+}
 _BWD_SIGNATURE = {
     "flash_attention_bwd_dq": [ctypes.c_void_p] * 8 + _SHAPE_STRIDES_SCALE_STREAM,
     "flash_attention_bwd_dkv": [ctypes.c_void_p] * 10 + _SHAPE_STRIDES_SCALE_STREAM,
@@ -56,10 +59,22 @@ _BWD_SIGNATURE = {
 # kernels' own figures on the card).
 DQ_BLOCK_M, DQ_BLOCK_N, DQ_STAGES = 64, 16, 3
 DKV_BLOCK_N, DKV_BLOCK_M, DKV_STAGES = 32, 32, 2
-# Hopper: shared memory of an SM (the runtime reserves 1 KB of it for each
-# resident block).
+# Launch geometry of the forward kernel; mirrors the constants of
+# ``csrc/flash_attention_fwd.cu`` (``forward_info`` reads the compiled
+# kernel's own figures on the card): 8 consumer warps (two warpgroups of 64
+# query rows) and a producer warpgroup, 128 query rows and 64-key tiles.
+FWD_BLOCK_M, FWD_BLOCK_N, FWD_STAGES, FWD_WARPS = 128, 64, 2, 8
+FWD_THREADS = FWD_WARPS * 32 + 128
+# Shared memory besides Q and the stages: votes, classes and barriers, and
+# room to align the tiles to 1024 bytes (the 128-byte swizzle's period).
+FWD_SMEM_EXTRA = 64 + 1024
+FWD_MASK_LD = FWD_BLOCK_N + 16  # bytes of a staged mask row: its 16-byte aligned window
+# Hopper: SMs, shared memory of an SM (the runtime reserves 1 KB of it for
+# each resident block), and the most one block may take.
+H100_SMS = 132
 SM_SHARED_BYTES = 228 * 1024
 BLOCK_RESERVED_SHARED = 1024
+BLOCK_SHARED_MAX = 227 * 1024
 
 
 def flash_attention_plain(q, k, v, mask, *, scale: float | None = None):
@@ -85,6 +100,36 @@ def flash_attention_plain(q, k, v, mask, *, scale: float | None = None):
     out = torch.einsum("bkgts,bskh->btkgh", p, v.float()) / denom.permute(0, 3, 1, 2, 4)
     lse = torch.where(dead, MASK_VALUE, row_max + torch.log(denom))[..., 0]
     return out.reshape(b, t, n, h).to(q.dtype), lse.reshape(b, n, t)
+
+
+def forward_plan(b, t, s, n, kh, h, sms: int = H100_SMS):
+    """Launch geometry of the forward kernel for q [b, t, n, h] and k, v
+    [b, s, kh, h], from the shapes alone: a block owns 128 query rows of one
+    (head, batch) and walks every 64-key tile, one block an SM. Raises on
+    shapes the kernel cannot take."""
+    if h not in SUPPORTED_HEAD_DIMS or min(b, t, s, n, kh) < 1 or n % kh:
+        raise ValueError(f"the forward kernel cannot take B={b} T={t} S={s} N={n} K={kh} H={h}")
+    row_tiles = -(-t // FWD_BLOCK_M)
+    smem = FWD_BLOCK_M * h * 2 + FWD_STAGES * (2 * FWD_BLOCK_N * h * 2 + FWD_BLOCK_M * FWD_MASK_LD) + FWD_SMEM_EXTRA
+    blocks_per_sm = SM_SHARED_BYTES // (smem + BLOCK_RESERVED_SHARED)
+    blocks = row_tiles * n * b
+    return dict(
+        grid=(row_tiles, n, b), blocks=blocks, key_tiles=-(-s // FWD_BLOCK_N), smem=smem,
+        blocks_per_sm=blocks_per_sm, waves=blocks / (sms * blocks_per_sm), threads=FWD_THREADS,
+    )
+
+
+def forward_info(h):
+    """Registers and local (spill) bytes a thread, dynamic shared memory and
+    resident blocks per SM (occupancy query) of the compiled forward kernel
+    at head dim ``h`` on the current card."""
+    from lap_tpu_torch import cuda_build
+
+    out = (ctypes.c_int * 4)()
+    err = cuda_build.load(SOURCE, _SIGNATURE).flash_attention_fwd_info(h, out)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd_info failed with cudaError {err}")
+    return dict(registers=out[0], local_bytes=out[1], smem=out[2], blocks_per_sm=out[3])
 
 
 def flash_attention_backward_plain(q, k, v, mask, out, lse, dout, scale: float | None = None):

@@ -159,8 +159,12 @@ def launch_plan(kind: str, m: int, k: int, n: int, group: int | None = None, sms
 
 
 def splitk_counters(device) -> torch.Tensor:
-    """The zeroed arrival counters of ``device``, allocated on first use."""
+    """The zeroed arrival counters of ``device``, allocated on first use.
+    ``cuda`` names the current card, so it keys the same counters as
+    ``cuda:<index>``."""
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     if device not in _COUNTERS:
         _COUNTERS[device] = torch.zeros(COUNTER_SLOTS, dtype=torch.int32, device=device)
     return _COUNTERS[device]

@@ -58,6 +58,66 @@ def test_flash_kernel_raises_on_unsupported_head_dim(cuda):
         fa.flash_attention(q, q, q, mask)
 
 
+# Forward kernel at the serving prefill and at ragged shapes: ragged T and S,
+# GQA groups 1, 2 and 8, H = 128 and 256, batch 1 and 3.
+FWD_CASES = [
+    # name, (b, t, s, n, kh, h)
+    ("prefill", (1, 692, 692, 8, 1, 256)),
+    ("ragged_group2", (1, 203, 333, 8, 4, 256)),
+    ("group8_h128", (1, 150, 1000, 8, 1, 128)),
+    ("group1_h128", (1, 300, 141, 8, 8, 128)),
+    ("ragged_b3", (3, 517, 700, 16, 2, 256)),
+]
+
+
+def _fwd_inputs(cuda, b, t, s, n, kh, h):
+    """Random q, k, v and a mask with fully masked rows (the first t // 7)
+    and rows whose later half of the keys is all masked."""
+    g = torch.Generator(device=cuda).manual_seed(b * t + s)
+    q = torch.randn((b, t, n, h), generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn((b, s, kh, h), generator=g, device=cuda).to(torch.bfloat16)
+    v = torch.randn((b, s, kh, h), generator=g, device=cuda).to(torch.bfloat16)
+    mask = torch.rand((b, t, s), generator=g, device=cuda) < 0.6
+    mask[:, : t // 7] = False
+    mask[:, t // 7 : 2 * t // 7, s // 2 :] = False
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("case", FWD_CASES, ids=[c[0] for c in FWD_CASES])
+def test_flash_forward_matches_plain_and_repeats_its_bits(cuda, case):
+    """Against the plain version (the tolerances above); dead rows exactly
+    zero with lse -2.3819763e38; one launch a call; two calls give the same
+    bits."""
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    _, shape = case
+    q, k, v, mask = _fwd_inputs(cuda, *shape)
+    before = fa.launches
+    out, lse = fa.flash_attention_forward(q, k, v, mask)
+    again, lse_again = fa.flash_attention_forward(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 2
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, mask)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=4e-3, rtol=1.6e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    t = shape[1]
+    assert out[:, : t // 7].abs().max().item() == 0.0
+    assert bool((lse[:, :, : t // 7] == fa.MASK_VALUE).all())
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+
+
+@pytest.mark.parametrize("h", [128, 256])
+def test_forward_plan_matches_the_compiled_kernel(cuda, h):
+    """The plan has the compiled kernel's shared memory and counts on no
+    more resident blocks per SM than fit; the kernel spills nothing."""
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    info = fa.forward_info(h)
+    plan = fa.forward_plan(1, 692, 692, 8, 1, h)
+    assert info["smem"] == plan["smem"] and info["blocks_per_sm"] >= plan["blocks_per_sm"], (info, plan)
+    assert info["local_bytes"] == 0, info
+
+
 BWD_CASES = [
     (2, 692, 708, 8, 1, 256),  # the LAP-3B training call: 16 all-false action columns
     (2, 130, 77, 8, 2, 256),
@@ -331,6 +391,9 @@ def test_dequant_kernels_are_deterministic_and_raise_on_what_they_cannot_take(cu
         i8.int8_matmul(xd[:7], *wd8)
     torch.cuda.synchronize()
     assert int(i8.splitk_counters(cuda).abs().sum()) == 0
+    # ``cuda`` and ``cuda:<index>`` name the same counters: a count left
+    # behind on one is seen through the other.
+    assert i8.splitk_counters(cuda) is i8.splitk_counters(torch.device("cuda", torch.cuda.current_device()))
     assert torch.equal(i8.int8_matmul(x, *w8), i8.int8_matmul(x, *w8))  # split-K sums in a fixed order
     assert torch.equal(i4.int4_matmul(x, *w4), i4.int4_matmul(x, *w4))
     with pytest.raises(ValueError, match="bfloat16"):
