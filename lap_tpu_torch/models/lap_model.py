@@ -76,6 +76,11 @@ class LAPConfig:
 
     verbose_mode: bool = False
     pi05: bool = True
+    # Read by the host transforms (tokenizer and prompt), not by the model.
+    discrete_state_input: bool = True
+    prompt_format: str = "lap"
+    prediction_format: str = "default"
+    use_fast: bool = False
 
     aug_wrist_image: bool = True
     enable_image_augmentation: bool = True
@@ -90,6 +95,8 @@ class LAPConfig:
     vqa_loss_weight: float = 0.1
     vqa_loss_weights: dict | None = None
 
+    state_dropout: float = 0.0
+    reasoning_mask_prob: float = 0.0
     stop_action_to_vlm_grad: bool = False
 
     # Attention implementation ("auto" / "flash" / "xla").
@@ -105,6 +112,10 @@ class LAPConfig:
     @property
     def image_keys(self) -> tuple[str, ...]:
         return IMAGE_KEYS
+
+    @property
+    def model_type(self) -> str:
+        return "lap_fast" if self.use_fast else "lap"
 
     @property
     def torch_dtype(self) -> torch.dtype:

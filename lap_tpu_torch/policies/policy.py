@@ -1,6 +1,7 @@
 """Inference policies (port of ``lap_tpu/policies/policy.py``): host
 transforms around ``LAP.sample_actions`` (``Policy``) and ``LAP.sample_tokens``
-(``ARPolicy``), with per-request timing.
+(``ARPolicy``), with per-request timing, and ``PolicyRecorder``, which writes
+every request and response to an ``.npz``.
 
 Each request draws its flow noise or sampling noise from a
 ``torch.Generator`` on the model's device, seeded from ``(seed, request
@@ -10,6 +11,7 @@ from its seed.
 
 from __future__ import annotations
 
+import pathlib
 import threading
 import time
 from collections.abc import Sequence
@@ -68,10 +70,14 @@ def _trim_token_pad(batch: dict, multiple: int) -> dict:
 
 
 def _stack_batch(inputs_list: list[dict]) -> dict:
-    """Stack K transformed-input dicts (nested dicts of arrays) into one batch."""
+    """Stack K transformed-input dicts (nested dicts of arrays, bools and
+    ints) into one batch. ``None`` stays ``None``, as an empty subtree does
+    under ``jax.tree.map``."""
     first = inputs_list[0]
     if isinstance(first, dict):
         return {k: _stack_batch([x[k] for x in inputs_list]) for k in first}
+    if first is None:
+        return None
     return np.stack([np.asarray(x) for x in inputs_list])
 
 
@@ -136,7 +142,7 @@ class _ModelPolicy(BasePolicy):
     def _row_outputs(self, sampled: np.ndarray, i: int) -> dict:
         raise NotImplementedError
 
-    def _infer_prepared(self, inputs_list: list[dict], n_results: int | None = None) -> list[dict]:
+    def _infer_prepared(self, inputs_list: list[dict]) -> list[dict]:
         """One batched model call over K prepared requests; each row draws its
         own noise from the request's generator."""
         batch = _stack_batch(inputs_list)
@@ -148,7 +154,7 @@ class _ModelPolicy(BasePolicy):
         sampled = self._sample(observation, generator).cpu().numpy()
         state = np.asarray(batch["state"])
         results = []
-        for i, inputs in enumerate(inputs_list[:n_results]):
+        for i, inputs in enumerate(inputs_list):
             outputs = {"state": state[i], **self._row_outputs(sampled, i)}
             if "raw_state" in inputs:
                 outputs["raw_state"] = np.asarray(inputs["raw_state"])
@@ -189,3 +195,62 @@ class ARPolicy(_ModelPolicy):
 
     def _row_outputs(self, sampled, i):
         return {"tokens": sampled[i : i + 1]}
+
+
+def _escape_record_key(k: str) -> str:
+    """'/' is the flattener's path separator, but it is also a legal request
+    key character (openpi-style flat keys like 'observation/state'); escape
+    it so such keys round-trip as themselves instead of as nesting."""
+    return k.replace("%", "%25").replace("/", "%2F")
+
+
+def _unescape_record_key(k: str) -> str:
+    return k.replace("%2F", "/").replace("%25", "%")
+
+
+def _flatten_record(prefix: str, tree: dict, out: dict) -> None:
+    """Flatten a (possibly nested) request/response dict into npz-storable
+    ``prefix/key/...`` entries, nested observation dicts included, so a
+    recorded request can be replayed byte-identically."""
+    for k, v in tree.items():
+        key = f"{prefix}/{_escape_record_key(str(k))}"
+        if isinstance(v, dict):
+            _flatten_record(key, v, out)
+        elif isinstance(v, (np.ndarray, np.number, int, float, str, bool)):
+            out[key] = np.asarray(v)
+
+
+def unflatten_record(flat: dict, prefix: str) -> dict:
+    """Inverse of the recorder's flattening for one ``prefix`` subtree."""
+    out: dict = {}
+    for key, v in flat.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        node = out
+        parts = [_unescape_record_key(p) for p in key[len(prefix) + 1 :].split("/")]
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out
+
+
+class PolicyRecorder(BasePolicy):
+    """Record every request/response pair to ``record_dir/step_NNNNNN.npz``
+    (openpi PolicyRecorder; ``lap_tpu/policies/policy.py:272``)."""
+
+    def __init__(self, policy: BasePolicy, record_dir: str):
+        super().__init__(metadata=policy.metadata)
+        self._policy = policy
+        self._record_dir = pathlib.Path(record_dir)
+        self._record_dir.mkdir(parents=True, exist_ok=True)
+
+    def infer(self, obs: dict) -> dict:
+        result = self._policy.infer(obs)
+        # Concurrent clients (threaded server / batched serving) must not
+        # reuse a record slot: the slot is the request counter's.
+        path = self._record_dir / f"step_{self._next_step() - 1:06d}.npz"
+        flat = {}
+        for prefix, tree in (("obs", obs), ("out", result)):
+            _flatten_record(prefix, tree, flat)
+        np.savez(path, **flat)
+        return result

@@ -1,7 +1,9 @@
-"""Training configs (port of the fields of ``lap_tpu/training/config.py``
-that the ported training path reads): the model, the schedule, the optimizer,
-the per-device batch, ``param_dtype``, the EMA choice, ``freeze_vlm`` and the
-seed. Data, checkpoints, meshes and logging back ends are not ported yet.
+"""Training configs (port of ``lap_tpu/training/config.py``): the model, the
+data config with its transform factories (what the serving stack builds its
+input and output transforms from), the schedule, the optimizer, the
+per-device batch, ``param_dtype``, the EMA choice, ``freeze_vlm`` and the
+seed. The data pipeline itself, checkpoints, meshes and logging back ends
+are not ported yet (ROADMAP items 12, 13, 19).
 """
 
 from __future__ import annotations
@@ -9,9 +11,147 @@ from __future__ import annotations
 import dataclasses
 import difflib
 import math
+from typing import Literal
 
+from lap_tpu_torch.data.helpers import ActionEncoding, NormalizationType
 from lap_tpu_torch.models.lap_model import LAPConfig
+from lap_tpu_torch.policies.input_transforms import CoTInputs
+from lap_tpu_torch.policies.model_transforms import (
+    DetokenizeReasoning,
+    Group,
+    InjectDefaultPrompt,
+    PadStates,
+    TokenizePromptAndReasoning,
+)
+from lap_tpu_torch.policies.output_transforms import CoTOutputs
+from lap_tpu_torch.policies.question_types import QuestionConfig
 from lap_tpu_torch.training import optimizer as _optimizer
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Data configuration (``lap_tpu/training/config.py:35-133``): the
+    fields the serving stack's transforms and norm stats read, with the JAX
+    defaults. The data loader's own fields come with the loader (ROADMAP
+    item 19)."""
+
+    asset_id: str | None = "oxe"
+    wrist_image_dropout_prob: float = 0.1
+    action_encoding: ActionEncoding = ActionEncoding.EEF_POS
+    action_proprio_normalization_type: NormalizationType = NormalizationType.BOUNDS_Q99
+    random_base_prob: float = 0.0
+    random_mask_prob: float = 0.2
+    use_rough_scale: bool = False
+
+    language_action_format_name: str = "verbose_eef_with_rotation"
+    transform_strategy: Literal["standard", "vla0"] = "standard"
+
+    enable_diverse_questions: bool = True
+    question_type_weights: dict | None = None
+    delta_motion_format_weights: dict | None = None
+    use_diverse_prompts: bool = True
+
+    gemma3_tokenizer_path: str | None = None
+
+    # Injected default prompt at inference when the request has none.
+    default_prompt: str | None = None
+
+    def data_transforms(self, model_config: LAPConfig) -> Group:
+        """Policy-side transforms (reference RLDSDataConfig:321-359)."""
+        question_config = None
+        if self.enable_diverse_questions:
+            question_config = QuestionConfig(
+                type_weights=self.question_type_weights,
+                delta_motion_format_weights=self.delta_motion_format_weights,
+                use_diverse_prompts=self.use_diverse_prompts,
+            )
+        return Group(
+            inputs=(
+                CoTInputs(
+                    action_dim=model_config.action_dim,
+                    model_type=model_config.model_type,
+                    wrist_image_dropout_prob=self.wrist_image_dropout_prob,
+                    action_encoding=self.action_encoding,
+                    language_action_format=self.language_action_format_name,
+                    random_mask_prob=self.random_mask_prob,
+                    random_base_prob=self.random_base_prob,
+                    use_rough_scale=self.use_rough_scale,
+                    transform_strategy=self.transform_strategy,
+                    enable_langact_training=model_config.enable_langact_training,
+                    enable_diverse_questions=self.enable_diverse_questions,
+                    question_config=question_config,
+                ),
+            ),
+            outputs=(
+                CoTOutputs(
+                    language_action_format=self.language_action_format_name,
+                    transform_strategy=self.transform_strategy,
+                ),
+            ),
+        )
+
+    def model_transforms(self, model_config: LAPConfig, *, include_outputs: bool = True) -> Group:
+        return ModelTransformFactory(
+            prompt_format=model_config.prompt_format,
+            prediction_format=model_config.prediction_format,
+            include_outputs=include_outputs,
+            gemma3_tokenizer_path=self.gemma3_tokenizer_path,
+            default_prompt=self.default_prompt,
+        )(model_config)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelTransformFactory:
+    """Builds the tokenizer and model transform Group per model type
+    (``lap_tpu/training/config.py:135-213``). The FAST variant
+    (``use_fast``) waits for the port of ``fast_tokenizer.py`` and
+    ``bpe.py`` (ROADMAP item 12)."""
+
+    prompt_format: str = "lap"
+    prediction_format: str = "default"
+    include_outputs: bool = True
+    gemma3_tokenizer_path: str | None = None
+    default_prompt: str | None = None
+
+    def _create_tokenizer(self, model_config: LAPConfig, reasoning_mask_prob: float):
+        from lap_tpu_torch.models.tokenizer import Gemma3Tokenizer, PaligemmaTokenizer
+
+        kwargs = dict(
+            max_len=model_config.max_token_len,
+            prompt_format=self.prompt_format,
+            prediction_format=self.prediction_format,
+            reasoning_mask_prob=reasoning_mask_prob,
+        )
+        if "gemma3" in model_config.paligemma_variant:
+            import os
+
+            if self.gemma3_tokenizer_path:
+                os.environ.setdefault("LAP_TPU_GEMMA3_TOKENIZER_MODEL", self.gemma3_tokenizer_path)
+            return Gemma3Tokenizer(num_images=len(model_config.image_keys), **kwargs)
+        return PaligemmaTokenizer(**kwargs)
+
+    def __call__(self, model_config: LAPConfig) -> Group:
+        if model_config.use_fast:
+            raise NotImplementedError(
+                "use_fast=True: the FAST action tokenizer (fast_tokenizer.py, bpe.py) is not ported yet "
+                "(ROADMAP queue A, item 12)"
+            )
+        outputs = ()
+        if self.include_outputs:
+            outputs = (DetokenizeReasoning(self._create_tokenizer(model_config, 0.0)),)
+        return Group(
+            inputs=(
+                InjectDefaultPrompt(self.default_prompt),
+                TokenizePromptAndReasoning(
+                    self._create_tokenizer(model_config, model_config.reasoning_mask_prob),
+                    discrete_state_input=model_config.discrete_state_input,
+                    verbose_mode=model_config.verbose_mode,
+                    state_dropout=model_config.state_dropout,
+                ),
+                PadStates(model_config.action_dim),
+            ),
+            outputs=outputs,
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -19,6 +159,7 @@ class TrainConfig:
     name: str = "lap"
 
     model: LAPConfig = dataclasses.field(default_factory=LAPConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
     lr_schedule: _optimizer.CosineDecaySchedule = dataclasses.field(
         default_factory=lambda: _optimizer.CosineDecaySchedule(
             warmup_steps=5_000, peak_lr=1e-4, decay_steps=40_000, decay_lr=1e-5
@@ -68,6 +209,7 @@ class TrainConfig:
 _CONFIGS = [
     TrainConfig(
         name="lap",
+        data=DataConfig(random_base_prob=0.5),
         model=LAPConfig(
             action_dim=7,
             action_horizon=16,
@@ -76,6 +218,22 @@ _CONFIGS = [
             stop_action_to_vlm_grad=True,
         ),
         batch_size=2048,
+    ),
+    # LIBERO fine-tuning (model and data; the schedule and the weight loader
+    # of lap_tpu/training/config.py:483-497 wait for ROADMAP item 12).
+    TrainConfig(
+        name="lap_libero",
+        model=LAPConfig(
+            action_dim=7,
+            action_horizon=10,
+            max_token_len=180,
+            enable_action_training=True,
+            stop_action_to_vlm_grad=False,
+            language_loss_weight=0.4,
+            enable_image_augmentation=False,
+        ),
+        data=DataConfig(asset_id="libero"),
+        batch_size=256,
     ),
     # Debug config: tiny model + synthetic data, runs anywhere.
     TrainConfig(
@@ -92,6 +250,7 @@ _CONFIGS = [
             enable_action_training=True,
             enable_langact_training=True,
         ),
+        data=DataConfig(asset_id="fake"),
         lr_schedule=_optimizer.CosineDecaySchedule(
             warmup_steps=10, peak_lr=1e-3, decay_steps=100, decay_lr=1e-4
         ),

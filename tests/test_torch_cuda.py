@@ -106,6 +106,66 @@ def test_flash_forward_matches_plain_and_repeats_its_bits(cuda, case):
     assert torch.equal(out, again) and torch.equal(lse, lse_again)
 
 
+def test_flash_forward_batch2_prefill_with_two_valid_lengths(cuda):
+    """The batched serving prefill of two prompts of different lengths (40
+    and 95 of 180 prompt slots after two 256-token cameras): both rows'
+    padding keys masked, the padded query rows fully masked; against the
+    plain version at the forward's tolerances, the same bits twice."""
+    from lap_tpu_torch.ops import flash_attention as fa
+    from lap_tpu_torch.ops.masks import make_attn_mask
+
+    t = 512 + 180
+    valid = torch.tensor([[512 + 40], [512 + 95]], device=cuda)
+    input_mask = torch.arange(t, device=cuda)[None, :] < valid
+    mask = make_attn_mask(input_mask, torch.zeros_like(input_mask))
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((2, t, 8, 256), generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn((2, t, 1, 256), generator=g, device=cuda).to(torch.bfloat16)
+    v = torch.randn((2, t, 1, 256), generator=g, device=cuda).to(torch.bfloat16)
+    out, lse = fa.flash_attention_forward(q, k, v, mask)
+    again, lse_again = fa.flash_attention_forward(q, k, v, mask)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, mask)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=4e-3, rtol=1.6e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+
+
+# The serving prefills of the serving stack's batched and bucketed calls:
+# (prompt slots, valid prompt tokens of each row) after two 256-token cameras.
+SERVING_PREFILLS = [
+    ("batch2_78_108_of_180", 180, (78, 108)),
+    ("token_bucket_92_of_128", 128, (92,)),
+]
+
+
+@pytest.mark.parametrize("case", SERVING_PREFILLS, ids=[c[0] for c in SERVING_PREFILLS])
+def test_flash_forward_serving_stack_prefills(cuda, case):
+    """The prefix-LM masks that the serving stack's batched call (two robots)
+    and its --token_bucket 64 call give the forward: against the plain
+    version at the forward's tolerances (atol 4e-3, rtol 1.6e-2; lse atol
+    1e-3), the same bits twice."""
+    from lap_tpu_torch.ops import flash_attention as fa
+    from lap_tpu_torch.ops.masks import make_attn_mask
+
+    _, slots, valid = case
+    t = 512 + slots
+    input_mask = torch.arange(t, device=cuda)[None, :] < torch.tensor([[512 + n] for n in valid], device=cuda)
+    mask = make_attn_mask(input_mask, torch.zeros_like(input_mask))
+    b = len(valid)
+    g = torch.Generator(device=cuda).manual_seed(t + b)
+    q = torch.randn((b, t, 8, 256), generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn((b, t, 1, 256), generator=g, device=cuda).to(torch.bfloat16)
+    v = torch.randn((b, t, 1, 256), generator=g, device=cuda).to(torch.bfloat16)
+    out, lse = fa.flash_attention_forward(q, k, v, mask)
+    again, lse_again = fa.flash_attention_forward(q, k, v, mask)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, mask)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=4e-3, rtol=1.6e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+
+
 @pytest.mark.parametrize("h", [128, 256])
 def test_forward_plan_matches_the_compiled_kernel(cuda, h):
     """The plan has the compiled kernel's shared memory and counts on no

@@ -15,6 +15,12 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "lap_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 TRAINING_MODULES = ("config", "optimizer", "state", "train", "train_step")
 QUANT_SERVING_MODULES = ("ops.int8_matmul", "ops.int4_matmul", "models.lora", "models.convert", "policies.policy")
+SERVING_STACK_MODULES = (
+    "policies.policy_config", "policies.batching", "serving.serve_policy", "serving.websocket_policy_server",
+    "serving.websocket_client_policy", "serving.msgpack_numpy", "policies.input_transforms",
+    "policies.output_transforms", "policies.model_transforms", "models.tokenizer", "models.spm", "native",
+    "training.checkpoints",
+)
 JAX_LIBS = ("jax", "jaxlib", "flax", "optax", "orbax")
 
 
@@ -32,7 +38,40 @@ def test_port_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
     mods = proc.stdout.split()
     assert len(mods) >= 12 + len(TRAINING_MODULES)
-    assert {f"lap_tpu_torch.{m}" for m in QUANT_SERVING_MODULES} <= set(mods)
+    assert {f"lap_tpu_torch.{m}" for m in QUANT_SERVING_MODULES + SERVING_STACK_MODULES} <= set(mods)
+
+
+def test_serving_stack_imports_without_its_transport_or_a_native_build():
+    """The card's host has no websockets or msgpack: importing every module
+    of the port, the entry point included, needs neither, and no import
+    builds the native library."""
+    blocked = "; ".join(f"sys.modules[{name!r}] = None" for name in (*JAX_LIBS, "websockets", "msgpack"))
+    code = (
+        "import sys, pkgutil, importlib; " + blocked + "; "
+        "import lap_tpu_torch; "
+        "[importlib.import_module(m.name) for m in pkgutil.walk_packages(lap_tpu_torch.__path__, 'lap_tpu_torch.')]; "
+        "from lap_tpu_torch import native; assert native.status() == 'not tried yet', native.status(); "
+        "from lap_tpu_torch.serving import serve_policy; serve_policy.parse_args(['--env', 'DEBUG'])"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_native_loader_reads_the_ports_own_source():
+    from lap_tpu_torch import cuda_build, native
+
+    assert native.SOURCE == REPO / "lap_tpu_torch" / "csrc" / "lap_native.cpp"
+    assert native.LIB_PATH.parent == REPO / "lap_tpu_torch" / "_build"
+    text = (REPO / "lap_tpu_torch" / "native.py").read_text()
+    assert "parents[2]" not in text  # never the root csrc/ of the JAX package
+    assert native.SOURCE.read_text().startswith((REPO / "csrc" / "lap_native.cpp").read_text().split("\n")[0])
+    # nvcc builds the four kernel sources (and reads the .cuh headers), never the host ops' .cpp.
+    from lap_tpu_torch.ops import flash_attention as fa
+    from lap_tpu_torch.ops import int4_matmul, int8_matmul
+
+    kernels = {fa.SOURCE, fa.BWD_SOURCE, int8_matmul.SOURCE, int4_matmul.SOURCE}
+    assert {p.name for p in cuda_build.CSRC_DIR.glob("*.cu")} == kernels
+    assert "lap_native.cpp" not in kernels and "*.cpp" not in (REPO / "lap_tpu_torch" / "cuda_build.py").read_text()
 
 
 def test_training_sources_are_scanned():
@@ -93,6 +132,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LAP(LAPConfig(**tiny_lap_config_kwargs()))
+    from lap_tpu_torch.serving import serve_policy
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_policy.create_policy(serve_policy.parse_args(["--env", "DEBUG"]))
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -325,11 +325,16 @@ def test_configs_hold_the_jax_values():
     for name in ("lap", "debug"):
         ref, got = jax_config.get_config(name), port_config.get_config(name)
         for field in dataclasses.fields(got):
-            if field.name in ("model", "lr_schedule", "optimizer", "ema_schedule_choice"):
+            if field.name in ("model", "data", "lr_schedule", "optimizer", "ema_schedule_choice"):
                 for sub in dataclasses.fields(getattr(got, field.name)):
                     assert getattr(getattr(got, field.name), sub.name) == getattr(getattr(ref, field.name), sub.name), (
                         name, field.name, sub.name)
             else:
                 assert getattr(got, field.name) == getattr(ref, field.name), (name, field.name)
+    # lap_libero: its model and data (the schedule and weight loader are not ported).
+    ref, got = jax_config.get_config("lap_libero"), port_config.get_config("lap_libero")
+    for part in ("model", "data"):
+        for sub in dataclasses.fields(getattr(got, part)):
+            assert getattr(getattr(got, part), sub.name) == getattr(getattr(ref, part), sub.name), (part, sub.name)
     with pytest.raises(ValueError, match="Did you mean"):
         port_config.get_config("lapp")

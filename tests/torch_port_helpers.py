@@ -194,3 +194,22 @@ def holder(**modules):
     for name, module in modules.items():
         setattr(out, name, module)
     return out
+
+
+def private_jax_native(build_dir):
+    """Point the JAX package's native loader at ``build_dir``, so that the
+    port's tests build its library there and never race another test
+    process over ``lap_tpu/native/_build/``. Returns a function that puts
+    the loader back."""
+    from lap_tpu import native as jax_native
+
+    saved = {k: getattr(jax_native, k) for k in ("_BUILD_DIR", "_LIB_PATH", "_lib", "_load_failed")}
+    jax_native._BUILD_DIR = build_dir
+    jax_native._LIB_PATH = build_dir / "liblap_native.so"
+    jax_native._lib, jax_native._load_failed = None, False
+
+    def restore():
+        for k, v in saved.items():
+            setattr(jax_native, k, v)
+
+    return restore
