@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Five paths are driven: LAP-3B flow-matching serving in bf16 (phase 6) and
+Six paths are driven: LAP-3B flow-matching serving in bf16 (phase 6) and
 with int8/int4 expert MLPs (phase 7), LAP-3B AR language-action serving in
 bf16, int8 and int4 (phase 8), the serving stack from raw robot requests and
-a checkpoint directory (phase 9), and the LAP-3B training step (phases
-11-12).
+a checkpoint directory (phase 9), the LAP-3B training step (phases 11-12),
+and the training entry points with their checkpoints, resume, validation,
+offline eval and serving of the trained step (phase 13).
 Each is driven with the launch counters set to 0 just before it and read
 just after. Phases, in order; any failure exits non-zero:
  1. build every CUDA kernel of the paths from the sources in this checkout
@@ -40,7 +41,8 @@ just after. Phases, in order; any failure exits non-zero:
     group-sum pass by their device time, the flash forward at the serving
     prefill by CUDA events around a loop of calls (``ms``; at batch 1 that
     is the host's time to launch a call) and by its device time
-    (``device_ms``), and the flash kernels last, at the batch the training
+    (``device_ms``), and the flash kernels last (the delta kernel beside
+    ``torch.bmm`` with ``out_dtype=float32``, held to the delta check's bound), at the batch the training
     path ran with: the forward beside SDPA's forward (both ways), each
     backward kernel alone and the whole ``flash_attention_backward`` as the
     path calls it, beside autograd through
@@ -98,7 +100,21 @@ just after. Phases, in order; any failure exits non-zero:
 12. compare one loss-and-gradient pass with the kernels against one with
     ``attn_impl="xla"`` from the same weights, batch, noise and time, and the
     float32 global gradient norm against a float64 sum over the same
-    gradients.
+    gradients;
+13. the training entry points at full width and depth (``lap`` with
+    ``--data.repo_id fake``, batch 8, bfloat16 parameters, the VLM frozen:
+    see ``TRAIN_PHASE_DTYPE`` for why), in a run directory inside the
+    checkout that is deleted at the end: ``train.main`` run 1 takes 2 steps
+    and saves (launches: 36 forward and 18 of each backward kernel a step);
+    the loss of the next batch on its state in memory; run 2 resumes and
+    takes no step (every state tensor's checksum and the loader cursor equal
+    run 1's); run 3 resumes, takes one step (its loss equal to that loss, bit
+    for bit) and one validation step (18 forward launches, no backward), and
+    saves; ``eval.main`` over the last step (finite ``val_loss`` and
+    ``action_prediction_l2``, 18 + 18 forward launches); that step directory
+    served by ``create_trained_policy`` in bf16 and int8 (18 flash, and 360
+    dequant launches in int8); the bytes, seconds and free disk of the saves
+    and restores (a ``train_entry_points`` JSON line).
 
 The serving model is freed before the training phase. The last lines of
 standard output are the ``kernels`` JSON line, the card's name and power
@@ -655,6 +671,34 @@ def backward_occupancy(batch):
     return result
 
 
+def time_delta_library(out, dout, delta):
+    """Yardstick only: one PyTorch call for delta = sum_h dO * O with f32
+    accumulation of the bf16 inputs and an f32 result, ``torch.bmm`` of
+    [B*T*N, 1, H] by [B*T*N, H, 1] with ``out_dtype=torch.float32`` (a cast
+    to f32 first would be a second call; a bf16 ``vecdot`` rounds the result
+    to bf16). Held to the delta check's bound against the kernel; None, with
+    the reason logged, where this PyTorch has no such call."""
+    import torch
+
+    b, t, n, h = out.shape
+
+    def call():
+        return torch.bmm(out.reshape(-1, 1, h), dout.reshape(-1, h, 1), out_dtype=torch.float32)
+
+    try:
+        got = call().view(b, t, n).transpose(1, 2)
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        log(f"timing flash_attention_bwd_delta: no single PyTorch call (bmm with out_dtype: {e}); library_ms=None")
+        return None
+    bound = 2 * (h - 1) * 2.0**-24 * (dout.float() * out.float()).abs().sum(-1).transpose(1, 2)
+    err = (got - delta).abs()
+    log(f"timing flash_attention_bwd_delta: library call torch.bmm(out_dtype=float32) vs the kernel "
+        f"max_abs_err={err.max().item():.3e} (bound at least {bound.min().item():.3e})")
+    if not bool((err <= bound).all()):
+        raise AssertionError("the delta yardstick computes another function than the kernel")
+    return device_ms_per_call([call], iters=50)
+
+
 def time_flash_backward(device, batch):
     """The backward at the training shape: the delta kernel, the dQ kernel and
     the dK/dV kernel with its group-sum pass each alone (from a given delta;
@@ -717,6 +761,7 @@ def time_flash_backward(device, batch):
     # Yardstick only: torch.sum over the group axis of the same f32 partials (f32 out).
     grouped = partial.view(2, b, s, kh, n // kh, h)
     group_sum_library_ms = device_ms_per_call([lambda: torch.sum(grouped, dim=4)], iters=50)
+    delta_library_ms = time_delta_library(out, dout_c, delta)
     # Yardstick only: autograd through one PyTorch call, dq, dk and dv together.
     qt = q.transpose(1, 2).detach().requires_grad_()
     kt = k.transpose(1, 2).detach().requires_grad_()
@@ -746,7 +791,7 @@ def time_flash_backward(device, batch):
          partial.numel() * 4 + 2 * k.numel() * 2),
     ):
         bound_ms, bound_by, flops_ms, bytes_ms = bound(flops, peak, nbytes)
-        library = group_sum_library_ms if name == "group_sum" else None  # torch.sum over the group axis
+        library = {"group_sum": group_sum_library_ms, "delta": delta_library_ms}.get(name)
         results[name] = dict(ms=ms, plain_ms=plain, library_ms=library, bound_ms=bound_ms, bound_by=bound_by,
                              batch=b)
         log(
@@ -2031,6 +2076,227 @@ def run_training(device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The training entry points: train.main, resume, validation, eval, serving
+# ---------------------------------------------------------------------------
+
+# The phase's parameter dtype and what it trains, fixed here, not at run
+# time. A step directory holds the parameters, the Adam moments and the EMA of
+# the trained parameters (the moments take the parameter's dtype), and the
+# EMA view under params/; retention keeps the previous step until the next is
+# whole. The H100 hosts this script is run on stop a run once it has written
+# 45 GiB to their disk, deleted files included, and phase 9 writes 6.7 GB of
+# them. Training all 3.35 B parameters, a step directory is 33.5 GB in
+# bfloat16 (67 GB in float32): one save fits, two do not (such a run was
+# stopped during its second save). With the VLM frozen (``--freeze_vlm
+# true``, a field of both packages; the action expert and the projections,
+# 0.31 B parameters, train), a step directory holds all 3.35 B parameters and
+# the EMA view of them at full width and depth: 16.0 GB in bfloat16 (about
+# twice that in float32, two of which do not fit either). Phases 11-12 keep
+# timing the float32 defaults with every parameter trained.
+TRAIN_PHASE_DTYPE = "bfloat16"
+TRAIN_PHASE_FREEZE_VLM = "true"
+TRAIN_PHASE_STEPS = 2  # run 1 takes these steps and saves at the last
+
+
+def state_checksums(state) -> dict:
+    """Two int64 sums of every tensor's bits (plain, and weighted by the
+    position mod 65521, so that a swap of two values shows): parameters,
+    Adam mu and nu, EMA, with the step and the Adam count."""
+    import torch
+
+    tensors = {f"params/{n}": p for n, p in state.params.items()}
+    tensors.update({f"mu/{n}": t for n, t in zip(state.trainable, state.opt_state.mu, strict=True)})
+    tensors.update({f"nu/{n}": t for n, t in zip(state.trainable, state.opt_state.nu, strict=True)})
+    tensors.update({f"ema/{n}": t for n, t in (state.ema_params or {}).items()})
+    sums = []
+    chunk = 1 << 26
+    with torch.no_grad():
+        for t in tensors.values():
+            flat = t.detach().reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
+            plain = torch.zeros((), dtype=torch.int64, device=t.device)
+            weighted = torch.zeros((), dtype=torch.int64, device=t.device)
+            for start in range(0, flat.numel(), chunk):
+                part = flat[start:start + chunk].to(torch.int64)
+                weight = torch.arange(start, start + part.numel(), device=t.device) % 65521 + 1
+                plain += part.sum()
+                weighted += (part * weight).sum()
+            sums.append(torch.stack([plain, weighted]))
+        values = torch.stack(sums).cpu().tolist()
+    out = dict(zip(tensors, map(tuple, values), strict=True))
+    out["step"], out["adam_count"] = state.step, state.opt_state.count
+    return out
+
+
+def flash_and_backward_launches() -> tuple[int, int, int, int, int]:
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    return (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv, fa.launches_bwd_delta, fa.launches_bwd_group_sum)
+
+
+def run_train_entry_points(device):
+    """Phase 13: ``train.main`` at full width (the ``lap`` config, batch
+    TRAIN_BATCH from the fake loader, TRAIN_PHASE_DTYPE parameters): run 1
+    takes TRAIN_PHASE_STEPS steps and saves; run 2 resumes and takes no step
+    (its restored state against run 1's, bit for bit); run 3 resumes, takes a
+    step (its loss against the loss run 1's state gave the same batch, bit for
+    bit) with a validation step, and saves; ``eval.main`` over the last step;
+    ``create_trained_policy`` on that step directory in bf16 and int8. The
+    run directory is deleted at the end, also on failure."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lap_tpu_torch.policies import policy_config
+    from lap_tpu_torch.training import eval as port_eval
+    from lap_tpu_torch.training import train as port_train
+    from lap_tpu_torch.training.config import cli
+    from lap_tpu_torch.training.train_step import step_generator
+
+    log(f"train entry points: parameters in {TRAIN_PHASE_DTYPE}, --freeze_vlm {TRAIN_PHASE_FREEZE_VLM}: a run may "
+        f"write 45 GiB to the host's disk, phase 9 writes 6.7 GB, and two step directories with every "
+        f"parameter trained would be 2 x 33.5 GB in bfloat16 (2 x 67 GB in float32)")
+    # In the checkout, not TMPDIR (which may be memory): tens of GB.
+    run_dir = Path(tempfile.mkdtemp(prefix=".train_phase_", dir=REPO))
+    numbers = {"dtype": TRAIN_PHASE_DTYPE, "freeze_vlm": TRAIN_PHASE_FREEZE_VLM}
+    launches = dict(fwd=0, dq=0, dkv=0, delta=0, group_sum=0, int8=0)
+    try:
+        config_args = ["lap", "--exp_name", "smoke", "--checkpoint_base_dir", str(run_dir), "--data.repo_id", "fake",
+                       "--data.data_mix", "none", "--batch_size", str(TRAIN_BATCH), "--param_dtype",
+                       TRAIN_PHASE_DTYPE, "--freeze_vlm", TRAIN_PHASE_FREEZE_VLM, "--save_interval", "1000"]
+
+        def args(*extra):
+            return [*config_args, "--device", str(device), *extra]
+
+        def count(before, what):
+            got = tuple(a - b for a, b in zip(flash_and_backward_launches(), before, strict=True))
+            for key, n in zip(("fwd", "dq", "dkv", "delta", "group_sum"), got, strict=True):
+                launches[key] += n
+            log(f"train entry points: {what}: launches (fwd, dq, dkv, delta, group_sum) {got}")
+            return got
+
+        free_before = shutil.disk_usage(run_dir).free
+
+        # Run 1: TRAIN_PHASE_STEPS steps from the seed, a save at the last.
+        reset_launch_counters()
+        t0 = time.monotonic()
+        first = port_train.main(args("--num_train_steps", str(TRAIN_PHASE_STEPS)))
+        run1_s = time.monotonic() - t0
+        got = count((0,) * 5, f"run 1 ({TRAIN_PHASE_STEPS} steps)")
+        depth = len(first.trainer.model.llm.layers)
+        per_step = (2 * depth, depth, depth, depth, depth)  # as phase 11: remat runs each forward twice; GQA
+        if got != tuple(TRAIN_PHASE_STEPS * n for n in per_step):
+            raise AssertionError(f"run 1: expected {TRAIN_PHASE_STEPS} x {per_step} launches, got {got}")
+        state = first.trainer.state
+        saved = state_checksums(state)
+        cursor = first.loader.state_dict()
+        numbers["write_s"] = first.checkpoints.last_save["seconds"]
+        numbers["write_bytes"] = first.checkpoints.last_save["bytes"]
+        free_after_one = shutil.disk_usage(run_dir).free
+        # The loss the next batch gives on the in-memory state, with the next
+        # step's randomness: the first step of a resumed run must give it.
+        batch = next(first.data_iter)
+        before = flash_and_backward_launches()
+        loss, _ = first.trainer.model.compute_loss(
+            *batch, train=True, generator=step_generator(first.trainer.config.seed, state.step, device))
+        next_loss = loss.item()
+        count(before, "next batch's loss on run 1's state")
+        log(f"train entry points: run 1 took {run1_s:.1f} s; saved step {state.step} "
+            f"({numbers['write_bytes']} bytes in {numbers['write_s']:.2f} s); {len(saved) - 2} state tensors "
+            f"checksummed; loader cursor {cursor}; next batch's loss {next_loss!r}")
+        first.close()
+        del first, state, batch, loss
+        release()
+
+        # Run 2: resume; no step to take. The restored state against run 1's.
+        reset_launch_counters()
+        second = port_train.main(args("--num_train_steps", str(TRAIN_PHASE_STEPS), "--resume", "true"))
+        restored = state_checksums(second.trainer.state)
+        numbers["restore_s"] = second.timings["restore_s"]
+        differ = sorted(k for k in saved if restored.get(k) != saved[k])
+        if differ or second.loader.state_dict() != cursor:
+            raise AssertionError(f"restored state differs from the saved one in {len(differ)} entries "
+                                 f"(first {differ[:3]}), cursor {second.loader.state_dict()} vs {cursor}")
+        log(f"train entry points: run 2 restored step {second.trainer.state.step} in {numbers['restore_s']:.2f} s: "
+            f"all {len(saved) - 2} state tensors bit-equal to run 1's, and the loader cursor")
+        second.close()
+        del second
+        release()
+
+        # Run 3: resume, one step (its loss against run 1's next loss), one
+        # validation step, and a save.
+        reset_launch_counters()
+        third = port_train.main(args("--num_train_steps", str(TRAIN_PHASE_STEPS + 1), "--resume", "true",
+                                     "--use_validation", "true", "--val_interval", "1"))
+        got = count((0,) * 5, "run 3 (one step and one validation step)")
+        if got != tuple(n + (depth if i == 0 else 0) for i, n in enumerate(per_step)):
+            raise AssertionError(f"run 3: expected {per_step} + {depth} validation forwards, got {got}")
+        resumed_loss = third.metrics["loss"]
+        numbers["restore_s_again"] = third.timings["restore_s"]
+        numbers["write_s_again"] = third.checkpoints.last_save["seconds"]
+        log(f"train entry points: run 3 first loss {resumed_loss!r} vs run 1's next batch {next_loss!r}; "
+            f"saved step {third.trainer.state.step} ({third.checkpoints.last_save['bytes']} bytes in "
+            f"{numbers['write_s_again']:.2f} s)")
+        if resumed_loss != next_loss:
+            raise AssertionError("the resumed run's first loss differs from the uninterrupted run's")
+        step_dir = third.checkpoints.step_dir(third.trainer.state.step)
+        third.close()
+        del third
+        release()
+        free_after = shutil.disk_usage(run_dir).free
+
+        # Offline eval over the last step: one batch, val_loss and action_prediction_l2.
+        reset_launch_counters()
+        t0 = time.monotonic()
+        results = port_eval.main(args("--num_eval_batches", "1", "--eval_all_checkpoints", "false"))
+        numbers["eval_s"] = time.monotonic() - t0
+        got = count((0,) * 5, "eval (one batch)")
+        (step, by_set), = results.items()
+        metrics = by_set["original"]
+        log(f"train entry points: eval of step {step} in {numbers['eval_s']:.1f} s: "
+            f"val_loss={metrics.get('val_loss')!r} action_prediction_l2={metrics.get('action_prediction_l2')!r}")
+        if not all(math.isfinite(metrics.get(k, math.nan)) for k in ("val_loss", "action_prediction_l2")):
+            raise AssertionError(f"eval metrics missing or not finite: {metrics}")
+        if got != (2 * depth, 0, 0, 0, 0):
+            raise AssertionError(f"eval: expected {depth} flash launches for the loss and {depth} for "
+                                 f"sample_actions, no backward, got {got}")
+        release()
+
+        # Serving the trained step directory, bf16 then int8.
+        train_config = cli(config_args)
+        for quantize in (None, "int8"):
+            reset_launch_counters()
+            t0 = time.monotonic()
+            policy = policy_config.create_trained_policy(train_config, step_dir, allow_test_vocab=True,
+                                                         quantize=quantize, device=device)
+            restore_s = time.monotonic() - t0
+            reset_launch_counters()
+            out = policy.infer(raw_request(40, train_config.model))
+            flash, int8, _ = serving_launches()
+            launches["fwd"] += flash
+            launches["int8"] += int8
+            actions = np.asarray(out["actions"])
+            log(f"train entry points: served step {step} ({quantize or 'bf16'}) restored in {restore_s:.2f} s: "
+                f"actions {actions.shape}, {flash} flash and {int8} int8 launches")
+            want_int8 = 0 if quantize is None else 2 * depth * 10
+            if actions.shape != (train_config.model.action_horizon, train_config.model.action_dim) or not \
+                    np.isfinite(actions).all() or flash != depth or int8 != want_int8:
+                raise AssertionError(f"serving the trained checkpoint ({quantize}): shape {actions.shape}, "
+                                     f"{flash} flash (want {depth}), {int8} int8 (want {want_int8})")
+            del policy
+            release()
+        numbers.update(free_before_gb=free_before / 1e9, free_after_run1_gb=free_after_one / 1e9,
+                       free_after_gb=free_after / 1e9, resumed_loss=resumed_loss)
+        log(f"train entry points: free disk {free_before / 1e9:.2f} GB before, {free_after_one / 1e9:.2f} GB after "
+            f"run 1, {free_after / 1e9:.2f} GB after run 3 (one step kept)")
+        print(json.dumps({"train_entry_points": numbers}), flush=True)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
 
     if not (REPO / "lap_tpu_torch" / "csrc").is_dir():
@@ -2083,7 +2349,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = run_training(device)
-    torch.cuda.empty_cache()
+    release()
+    entry = run_train_entry_points(device)
     bwd_timing = time_flash_backward(device, TRAIN_BATCH)
 
     csrc = "lap_tpu_torch/csrc/"
@@ -2092,10 +2359,10 @@ def main() -> int:
             name="flash_attention_fwd", route="cuda", source=csrc + fa.SOURCE,
             replaces="lap_tpu/ops/flash_attention.py:53",
             launches=flow_launches + sum(c[0] for c in quant_flow.values()) + sum(c[0] for c in ar.values())
-            + stack["flash"] + train_launches["fwd"],
+            + stack["flash"] + train_launches["fwd"] + entry["fwd"],
             launches_flow=flow_launches, launches_quant_flow=sum(c[0] for c in quant_flow.values()),
             launches_ar=sum(c[0] for c in ar.values()), launches_serving_stack=stack["flash"],
-            launches_training=train_launches["fwd"],
+            launches_training=train_launches["fwd"], launches_train_entry_points=entry["fwd"],
             max_abs_err=max(max_err, bwd_err["fwd"]), **timing,
             timed_at=f"B=1 T=S={LAP_PREFIX} (serving prefill)",
             training_shape={k: v for k, v in bwd_timing["fwd"].items() if k != "batch"},
@@ -2103,22 +2370,26 @@ def main() -> int:
         ),
         dict(
             name="flash_attention_bwd_dq", route="cuda", source=csrc + fa.BWD_SOURCE,
-            replaces="lap_tpu/ops/flash_attention.py:173", launches=train_launches["dq"],
+            replaces="lap_tpu/ops/flash_attention.py:173", launches=train_launches["dq"] + entry["dq"],
+            launches_training=train_launches["dq"], launches_train_entry_points=entry["dq"],
             max_abs_err=bwd_err["dq"], **bwd_timing["dq"],
         ),
         dict(
             name="flash_attention_bwd_dkv", route="cuda", source=csrc + fa.BWD_SOURCE,
-            replaces="lap_tpu/ops/flash_attention.py:215", launches=train_launches["dkv"],
+            replaces="lap_tpu/ops/flash_attention.py:215", launches=train_launches["dkv"] + entry["dkv"],
+            launches_training=train_launches["dkv"], launches_train_entry_points=entry["dkv"],
             max_abs_err=bwd_err["dkv"], **bwd_timing["dkv"],
         ),
         dict(
             name="flash_attention_bwd_delta", route="cuda", source=csrc + fa.BWD_SOURCE,
-            replaces="lap_tpu/ops/flash_attention.py:270", launches=train_launches["delta"],
+            replaces="lap_tpu/ops/flash_attention.py:270", launches=train_launches["delta"] + entry["delta"],
+            launches_training=train_launches["delta"], launches_train_entry_points=entry["delta"],
             max_abs_err=bwd_err["delta"], **bwd_timing["delta"],
         ),
         dict(
             name="flash_attention_bwd_group_sum", route="cuda", source=csrc + fa.BWD_SOURCE,
-            replaces="lap_tpu/ops/flash_attention.py:340", launches=train_launches["group_sum"],
+            replaces="lap_tpu/ops/flash_attention.py:340", launches=train_launches["group_sum"] + entry["group_sum"],
+            launches_training=train_launches["group_sum"], launches_train_entry_points=entry["group_sum"],
             max_abs_err=bwd_err["group_sum"], **bwd_timing["group_sum"],
         ),
     ]
@@ -2130,7 +2401,9 @@ def main() -> int:
                                               ("int4_matmul", "lap_tpu/ops/int4_matmul.py:93"))):
         kernels.append(dict(
             name=name, route="cuda", source=csrc + (i8.SOURCE, i4.SOURCE)[index], replaces=replaces,
-            launches=quant_flow[name[:4]][1 + index] + ar[name[:4]][1 + index] + stack.get(name[:4], 0),
+            launches=quant_flow[name[:4]][1 + index] + ar[name[:4]][1 + index] + stack.get(name[:4], 0)
+            + entry.get(name[:4], 0),
+            launches_train_entry_points=entry.get(name[:4], 0),
             launches_quant_flow=quant_flow[name[:4]][1 + index], launches_ar=ar[name[:4]][1 + index],
             launches_serving_stack=stack.get(name[:4], 0),
             max_abs_err=quant_err[name], timed_at=f"M={json_rows} K={k} N={n} ({json_shape})",

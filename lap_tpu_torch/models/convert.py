@@ -23,7 +23,22 @@ port's quantized buffers with the same checks.
 
 The same translation carries any tree laid out like the params: a gradient
 tree, Adam moments, an EMA copy. ``None`` leaves (the frozen gaps of a
-partitioned trainable tree) are passed over; nothing else is dropped.
+partitioned trainable tree, or the leaves a weight-loader merge leaves at
+their init) are passed over; nothing else is dropped.
+``load_jax_params(..., partial=True)`` takes such a partial tree and leaves
+the parameters it does not name at the model's init.
+
+Host files: ``read_params_npz`` reads a flat ``.npz`` params tree (keys
+``params/llm/...``, as ``scripts/export_jax_params.py`` and big_vision write
+them). numpy has no bfloat16 without ``ml_dtypes`` (which the card's host
+lacks): ``np.save`` stores such leaves as 2-byte void, and ``_to_tensor``
+views them as ``torch.bfloat16`` after the numpy translation (which moves
+void elements as it moves any other).
+
+The inverse: ``to_jax_params`` lays a port state dict out as the JAX flat
+params tree (stacked layers, flax kernels), and ``jax_params_template`` gives
+that tree's shapes as meta tensors. The weight loaders merge in JAX-path space
+through them, so that a ``missing_regex`` means what it means in JAX.
 """
 
 from __future__ import annotations
@@ -150,7 +165,11 @@ def _translate(key: str, value: np.ndarray) -> list[tuple[str, np.ndarray]]:
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: no numpy-native twin
         return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
-    return torch.from_numpy(np.array(arr))  # a writable, contiguous copy
+    if arr.dtype.kind == "V":  # bfloat16 as np.save writes it without ml_dtypes
+        if arr.itemsize != 2:
+            raise ValueError(f"unknown void dtype with itemsize {arr.itemsize}")
+        return torch.from_numpy(np.array(arr).view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))  # a writable copy
 
 
 def from_jax_params(tree: dict) -> dict[str, torch.Tensor]:
@@ -247,22 +266,137 @@ def load_jax_quant(model: nn.Module, tree: dict) -> nn.Module:
     return model
 
 
-def load_jax_params(model: nn.Module, tree: dict) -> nn.Module:
-    """Fill every parameter of ``model`` from a JAX params tree.
+def load_jax_params(model: nn.Module, tree: dict, *, partial: bool = False) -> nn.Module:
+    """Fill the parameters of ``model`` from a JAX params tree.
 
-    Raises if a port parameter is left unfilled, a leaf is left over, or a
-    shape differs. Values are cast to each parameter's dtype and device.
+    Raises if a leaf is left over, a shape differs, or (unless ``partial``)
+    a port parameter is left unfilled; with ``partial`` the parameters the
+    tree does not name (missing or ``None`` leaves) keep their values. Values
+    are cast to each parameter's dtype and device.
     """
     state = from_jax_params(tree)
     own = dict(model.named_parameters())
-    missing = sorted(set(own) - set(state))
+    missing = [] if partial else sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))
     if missing or extra:
         raise ValueError(f"weight bridge mismatch: unfilled {missing}, unexpected {extra}")
+    for name, value in state.items():
+        if tuple(value.shape) != tuple(own[name].shape):
+            raise ValueError(f"{name}: shape {tuple(value.shape)} != {tuple(own[name].shape)}")
     with torch.no_grad():
-        for name, param in own.items():
-            value = state[name]
-            if tuple(value.shape) != tuple(param.shape):
-                raise ValueError(f"{name}: shape {tuple(value.shape)} != {tuple(param.shape)}")
+        for name, value in state.items():
+            param = own[name]
             param.copy_(value.to(dtype=param.dtype, device=param.device))
     return model
+
+
+def read_params_npz(path) -> dict[str, np.ndarray]:
+    """A flat params ``.npz`` -> {JAX path: array}, the ``params/`` prefix
+    dropped; bfloat16 leaves stay 2-byte void (``_to_tensor`` reads them)."""
+    with np.load(path, allow_pickle=False) as f:
+        return {key.removeprefix("params/"): f[key] for key in f.files}
+
+
+# ---------------------------------------------------------------------------
+# The inverse: port state dict -> JAX flat params tree
+# ---------------------------------------------------------------------------
+
+_DENSE_TOPS = ("action_in_proj", "action_out_proj", "time_mlp_in", "time_mlp_out")
+_NORM_LEAVES = {"scale": "scale", "modulation_weight": "Dense_0/kernel", "modulation_bias": "Dense_0/bias"}
+
+
+def _transpose(t: torch.Tensor) -> torch.Tensor:
+    return t.T
+
+
+def _keep(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _suffix(expert: str) -> str:
+    return "" if expert == "0" else f"_{expert}"
+
+
+def _dense_leaf(prefix: str, leaf: str):
+    return (f"{prefix}/kernel", _transpose) if leaf == "weight" else (f"{prefix}/bias", _keep)
+
+
+def _jax_leaf(name: str, heads: int):
+    """A port parameter name -> (JAX path, layer index or None, the map of
+    its value to the JAX layout of that layer's slice)."""
+    parts = name.split(".")
+    top = parts[0]
+    if top in _DENSE_TOPS and len(parts) == 2:
+        path, fn = _dense_leaf(top, parts[1])
+        return path, None, fn
+    if top == "llm":
+        if parts[1:] == ["embedder", "input_embedding"]:
+            return "llm/embedder/input_embedding", None, _keep
+        if parts[1] == "final_norm" and len(parts) == 4:
+            leaf = _NORM_LEAVES[parts[3]]
+            return f"llm/final_norm{_suffix(parts[2])}/{leaf}", None, _transpose if "kernel" in leaf else _keep
+        if parts[1] == "layers":
+            i, rest = int(parts[2]), parts[3:]
+            if rest[0] == "attn" and len(rest) == 4 and rest[3] == "w":
+                return f"llm/layers/attn/{rest[1]}{_suffix(rest[2])}/w", i, _keep
+            if rest[0] in ("pre_attention_norm", "pre_ffw_norm") and len(rest) == 3:
+                leaf = _NORM_LEAVES[rest[2]]
+                return f"llm/layers/{rest[0]}{_suffix(rest[1])}/{leaf}", i, _transpose if "kernel" in leaf else _keep
+            if rest[0] == "mlp" and len(rest) == 3:
+                return f"llm/layers/mlp{_suffix(rest[1])}/{rest[2]}", i, _keep
+    if top == "img":
+        if parts[1:] == ["embedding", "weight"]:  # OIHW -> HWIO
+            return "img/embedding/kernel", None, lambda t: t.permute(2, 3, 1, 0)
+        if parts[1:] == ["embedding", "bias"]:
+            return "img/embedding/bias", None, _keep
+        if parts[1:] == ["pos_embedding"]:
+            return "img/pos_embedding", None, _keep
+        if parts[1] == "encoder_norm":
+            return "img/Transformer_encoder_norm/" + {"weight": "scale", "bias": "bias"}[parts[2]], None, _keep
+        if parts[1] == "head":
+            path, fn = _dense_leaf("img/head", parts[2])
+            return path, None, fn
+        if parts[1] == "blocks":
+            i, rest = int(parts[2]), parts[3:]
+            block = "img/Transformer_encoderblock"
+            if rest[0] in ("ln0", "ln1"):
+                ln = "LayerNorm_0" if rest[0] == "ln0" else "LayerNorm_1"
+                return f"{block}/{ln}/" + {"weight": "scale", "bias": "bias"}[rest[1]], i, _keep
+            if rest[0] == "attn":
+                proj, leaf = rest[1], rest[2]
+                path = f"{block}/MultiHeadDotProductAttention_0/{proj}/" + ("kernel" if leaf == "weight" else "bias")
+                if proj in ("query", "key", "value"):
+                    if leaf == "weight":  # [N*H, D] -> [D, N, H]
+                        return path, i, lambda t: t.T.reshape(t.shape[1], heads, -1)
+                    return path, i, lambda t: t.reshape(heads, -1)
+                if proj == "out" and leaf == "weight":  # [D, N*H] -> [N, H, D]
+                    return path, i, lambda t: t.T.reshape(heads, -1, t.shape[0])
+                if proj == "out":
+                    return path, i, _keep
+            if rest[0] in ("mlp0", "mlp1"):
+                path, fn = _dense_leaf(f"{block}/MlpBlock_0/Dense_{rest[0][-1]}", rest[1])
+                return path, i, fn
+    raise KeyError(name)
+
+
+def to_jax_params(named: dict[str, torch.Tensor], *, siglip_heads: int) -> dict[str, torch.Tensor]:
+    """A port state dict -> the JAX flat params tree ({path: tensor}, layers
+    stacked on a leading depth axis as ``nn.scan`` lays them out); the
+    inverse of ``from_jax_params``. Raises on a name it does not know."""
+    leaves, layers = {}, {}
+    for name, value in named.items():
+        path, layer, fn = _jax_leaf(name, siglip_heads)
+        if layer is None:
+            leaves[path] = fn(value)
+        else:
+            layers.setdefault(path, {})[layer] = fn(value)
+    for path, by_layer in layers.items():
+        leaves[path] = torch.stack([by_layer[i] for i in range(len(by_layer))])
+    return leaves
+
+
+def jax_params_template(model: nn.Module) -> dict[str, torch.Tensor]:
+    """The JAX flat params tree of ``model`` as meta tensors: its paths,
+    shapes and dtypes, with no storage."""
+    named = {n: torch.empty(p.shape, dtype=p.dtype, device="meta") for n, p in model.named_parameters()}
+    return to_jax_params(named, siglip_heads=model.img.config.num_heads)

@@ -130,7 +130,11 @@ class Embedder(QuantWeights):
         return [("decode_", self.input_embedding, (1, 0), 1)]
 
     def encode(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.input_embedding[tokens]
+        # F.embedding, not indexing: indexing's backward accumulates with
+        # index_put_, which on the CPU sums repeated tokens in an order that
+        # varies with the threads, so two identical steps gave different
+        # table gradients; embedding's backward sums in a fixed order.
+        x = F.embedding(tokens.long(), self.input_embedding)
         scale = torch.tensor(float(self.embed_dim), dtype=torch.float32).sqrt().to(x.dtype)
         return x * scale.to(x.device)
 

@@ -32,8 +32,8 @@ class Observation:
         return dataclasses.replace(self, **changes)
 
     @classmethod
-    def from_dict(cls, data: dict, *, device=None):
-        return cls(**_base_fields_from_dict(data, device=device))
+    def from_dict(cls, data: dict, *, device=None, convert_images: bool = True):
+        return cls(**_base_fields_from_dict(data, device=device, convert_images=convert_images))
 
 
 _COT_KEYS = (
@@ -64,8 +64,8 @@ class CoTObservation(Observation):
     vqa_dataset_id: Any = None
 
     @classmethod
-    def from_dict(cls, data: dict, *, device=None):
-        fields = _base_fields_from_dict(data, device=device)
+    def from_dict(cls, data: dict, *, device=None, convert_images: bool = True):
+        fields = _base_fields_from_dict(data, device=device, convert_images=convert_images)
         cot_src = data.get("extras", {}).get("cot", {})
         extras = {k: _tensor(data.get(k, cot_src.get(k)), device) for k in _COT_KEYS}
         return cls(**fields, **extras)
@@ -90,11 +90,12 @@ def _to_float_image(img: torch.Tensor) -> torch.Tensor:
     return img
 
 
-def _base_fields_from_dict(data: dict, *, device=None) -> dict:
+def _base_fields_from_dict(data: dict, *, device=None, convert_images: bool = True) -> dict:
     # Images travel to the device as uint8 (4x fewer bytes) and are converted
-    # there.
+    # there, here or (``convert_images=False``) by the model's preprocessing.
+    convert = _to_float_image if convert_images else (lambda img: img)
     return dict(
-        images={k: _to_float_image(_tensor(v, device)) for k, v in data["image"].items()},
+        images={k: convert(_tensor(v, device)) for k, v in data["image"].items()},
         image_masks={k: _tensor(v, device) for k, v in data.get("image_mask", {}).items()},
         state=_tensor(data["state"], device),
         tokenized_prompt=_tensor(data.get("tokenized_prompt"), device),

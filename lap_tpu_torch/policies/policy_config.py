@@ -1,9 +1,12 @@
 """Build inference policies from a TrainConfig and a checkpoint directory
 (port of ``lap_tpu/policies/policy_config.py``).
 
-The checkpoint directory holds ``params/model.pt`` (the port's params file,
-``training/checkpoints.save_params``) and ``assets/<asset_id>/norm_stats.json``
-(the JAX package's layout). The input stack is [InjectDefaultPrompt -> data
+The checkpoint directory is a step directory: ``params/`` holds the port's
+params file ``model.pt`` (what the port's trainer writes, the EMA view, or
+``training/checkpoints.save_params``) or ``params.npz`` (a JAX orbax
+``params/`` directory exported by ``scripts/export_jax_params.py``), and
+``assets/<asset_id>/norm_stats.json`` is the JAX package's layout. The
+input stack is [InjectDefaultPrompt -> data
 transforms (``CoTInputs``) -> Normalize -> model transforms (tokenizer,
 ``PadStates``)]; the output stack is ``Unnormalize`` for flow, and
 ``DetokenizeReasoning`` then ``CoTOutputs`` for AR. The stacks and the
@@ -12,10 +15,11 @@ milliseconds instead of after a multi-GB read.
 
 The restore builds the model empty on its device (``init_seed=None``) in the
 config's dtype (bf16 for a bf16 model), with the training-only
-``stop_action_to_vlm_grad`` off, and fills it from the params file;
-``quantize`` then adds int8/int4 copies of the decode weights through
-``LAP.quantize_``. Tensor-parallel serving (``tp > 1``) waits for ROADMAP
-item 13, and ``gs://`` checkpoint directories for item 21.
+``stop_action_to_vlm_grad`` off, and fills it from the params file (cast
+to the model's dtype); ``quantize`` then adds int8/int4 copies of the
+decode weights through ``LAP.quantize_``. Tensor-parallel serving
+(``tp > 1``) waits for ROADMAP item 13, and ``gs://`` checkpoint
+directories for item 21.
 """
 
 from __future__ import annotations

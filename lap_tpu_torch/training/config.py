@@ -1,9 +1,16 @@
 """Training configs (port of ``lap_tpu/training/config.py``): the model, the
 data config with its transform factories (what the serving stack builds its
-input and output transforms from), the schedule, the optimizer, the
-per-device batch, ``param_dtype``, the EMA choice, ``freeze_vlm`` and the
-seed. The data pipeline itself, checkpoints, meshes and logging back ends
-are not ported yet (ROADMAP items 12, 13, 19).
+input and output transforms from) and the fields of the ``fake`` loader, the
+weight loader, the schedule, the optimizer, the batch, ``param_dtype``, the
+EMA choice, ``freeze_vlm``, the seed, and the fields the training loop and
+offline eval read (``:216-286``): run names and directories, checkpoint
+interval and retention, resume / overwrite, validation and ``eval_*``.
+``cli()`` resolves ``<config> [--field value ...]`` as JAX's does.
+
+Left out: the RLDS pipeline's data fields (ROADMAP item 19), meshes and
+parallelism (item 13), wandb (item 21), and the named configs and
+``LAPConfig`` fields of the FAST, pi0, vla0 and Gemma3 models (item 12b).
+Defaults equal JAX's; a test compares them field by field.
 """
 
 from __future__ import annotations
@@ -11,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import difflib
 import math
+import pathlib
 from typing import Literal
 
 from lap_tpu_torch.data.helpers import ActionEncoding, NormalizationType
@@ -26,16 +34,23 @@ from lap_tpu_torch.policies.model_transforms import (
 from lap_tpu_torch.policies.output_transforms import CoTOutputs
 from lap_tpu_torch.policies.question_types import QuestionConfig
 from lap_tpu_torch.training import optimizer as _optimizer
+from lap_tpu_torch.training import weight_loaders
+from lap_tpu_torch.utils import cli as _cli
 
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
     """Data configuration (``lap_tpu/training/config.py:35-133``): the
-    fields the serving stack's transforms and norm stats read, with the JAX
-    defaults. The data loader's own fields come with the loader (ROADMAP
-    item 19)."""
+    fields the serving stack's transforms, the norm stats and the ``fake``
+    loader read, with the JAX defaults. The RLDS pipeline's fields come with
+    it (ROADMAP item 19)."""
 
+    repo_id: str | None = "oxe"
     asset_id: str | None = "oxe"
+    max_samples: int | None = None
+    val_max_samples: int | None = None
+    val_fraction: float | None = 0.025
+    data_mix: str | None = "oxe_magic_soup"
     wrist_image_dropout_prob: float = 0.1
     action_encoding: ActionEncoding = ActionEncoding.EEF_POS
     action_proprio_normalization_type: NormalizationType = NormalizationType.BOUNDS_Q99
@@ -105,7 +120,7 @@ class ModelTransformFactory:
     """Builds the tokenizer and model transform Group per model type
     (``lap_tpu/training/config.py:135-213``). The FAST variant
     (``use_fast``) waits for the port of ``fast_tokenizer.py`` and
-    ``bpe.py`` (ROADMAP item 12)."""
+    ``bpe.py`` (ROADMAP item 12b)."""
 
     prompt_format: str = "lap"
     prediction_format: str = "default"
@@ -134,7 +149,7 @@ class ModelTransformFactory:
         if model_config.use_fast:
             raise NotImplementedError(
                 "use_fast=True: the FAST action tokenizer (fast_tokenizer.py, bpe.py) is not ported yet "
-                "(ROADMAP queue A, item 12)"
+                "(ROADMAP queue A, item 12b)"
             )
         outputs = ()
         if self.include_outputs:
@@ -157,9 +172,14 @@ class ModelTransformFactory:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     name: str = "lap"
+    exp_name: str = "default"
+    project_name: str = "lap_tpu"
 
     model: LAPConfig = dataclasses.field(default_factory=LAPConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    weight_loader: weight_loaders.WeightLoaderChoice = dataclasses.field(
+        default_factory=weight_loaders.WeightLoaderChoice
+    )
     lr_schedule: _optimizer.CosineDecaySchedule = dataclasses.field(
         default_factory=lambda: _optimizer.CosineDecaySchedule(
             warmup_steps=5_000, peak_lr=1e-4, decay_steps=40_000, decay_lr=1e-5
@@ -169,11 +189,15 @@ class TrainConfig:
         default_factory=lambda: _optimizer.AdamW(weight_decay=0.0001)
     )
 
-    # The global batch of the published recipe; the trainer takes a per-device
-    # batch as an argument.
+    # The global batch; one process loads all of it (ROADMAP item 13 splits
+    # it over processes).
     batch_size: int = 2048
     num_train_steps: int = 40_000
+    save_interval: int = 1000
     log_interval: int = 50
+    keep_period: int | None = 5000
+    resume: bool = True
+    overwrite: bool = False
     seed: int = 0
 
     ema_decay: float | None = 0.999
@@ -182,7 +206,32 @@ class TrainConfig:
     )
 
     param_dtype: str = "float32"
+
+    checkpoint_base_dir: str = "./checkpoints"
+    assets_base_dir: str = "./assets"
+
+    use_validation: bool = False
+    val_interval: int = 2000
+    allow_partial_weights: bool = True
     freeze_vlm: bool = False
+
+    eval_checkpoint_step: int | None = None
+    eval_checkpoint_steps: tuple[int, ...] | None = None
+    eval_all_checkpoints: bool = True
+    eval_start_from_step: int | None = None
+    num_eval_batches: int | None = 500
+    eval_use_ema: bool = True
+    eval_split: Literal["val", "train"] = "val"
+
+    @property
+    def assets_dirs(self) -> pathlib.Path:
+        return pathlib.Path(self.assets_base_dir) / self.name
+
+    @property
+    def checkpoint_dir(self) -> pathlib.Path:
+        if not self.exp_name:
+            raise ValueError("--exp_name must be set")
+        return pathlib.Path(self.checkpoint_base_dir) / self.name / self.exp_name
 
     def get_ema_decay_for_step(self, step: int) -> tuple[float, bool]:
         """(decay, enabled) at ``step``, including the cosine-delayed ramp."""
@@ -219,8 +268,6 @@ _CONFIGS = [
         ),
         batch_size=2048,
     ),
-    # LIBERO fine-tuning (model and data; the schedule and the weight loader
-    # of lap_tpu/training/config.py:483-497 wait for ROADMAP item 12).
     TrainConfig(
         name="lap_libero",
         model=LAPConfig(
@@ -232,8 +279,14 @@ _CONFIGS = [
             language_loss_weight=0.4,
             enable_image_augmentation=False,
         ),
-        data=DataConfig(asset_id="libero"),
+        data=DataConfig(repo_id="libero", asset_id="libero", data_mix="libero_finetune", val_fraction=0.0),
+        lr_schedule=_optimizer.CosineDecaySchedule(warmup_steps=1000, peak_lr=5e-5, decay_steps=40_000, decay_lr=5e-5),
+        weight_loader=weight_loaders.WeightLoaderChoice(kind="checkpoint", params_path="checkpoints/lap/params"),
+        save_interval=2000,
+        keep_period=2000,
+        num_train_steps=40_001,
         batch_size=256,
+        ema_schedule_choice=_optimizer.EmaScheduleChoice(kind="constant"),
     ),
     # Debug config: tiny model + synthetic data, runs anywhere.
     TrainConfig(
@@ -250,12 +303,13 @@ _CONFIGS = [
             enable_action_training=True,
             enable_langact_training=True,
         ),
-        data=DataConfig(asset_id="fake"),
+        data=DataConfig(repo_id="fake", asset_id="fake", data_mix=None, val_fraction=0.0),
         lr_schedule=_optimizer.CosineDecaySchedule(
             warmup_steps=10, peak_lr=1e-3, decay_steps=100, decay_lr=1e-4
         ),
         batch_size=8,
         num_train_steps=20,
+        save_interval=10,
         log_interval=5,
         ema_decay=None,
     ),
@@ -270,3 +324,8 @@ def get_config(config_name: str) -> TrainConfig:
     closest = difflib.get_close_matches(config_name, _CONFIGS_DICT.keys(), n=3, cutoff=0.0)
     hint = f" Did you mean one of: {', '.join(map(repr, closest))}?" if closest else ""
     raise ValueError(f"Config {config_name!r} not found.{hint}")
+
+
+def cli(argv: list[str] | None = None) -> TrainConfig:
+    """``<config-name> [--field value ...]`` -> the resolved config."""
+    return _cli.overridable_config_cli(_CONFIGS_DICT, argv)

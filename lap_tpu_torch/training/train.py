@@ -1,33 +1,57 @@
-"""Trainer entry point (port of the core loop of ``scripts/train.py``).
+"""Training entry point (port of ``scripts/train.py:165-352``).
 
-    python -m lap_tpu_torch.training.train lap --num_train_steps 10 --batch_size 8
+    python -m lap_tpu_torch.training.train <config> --exp_name X [--field value ...] [--device cpu]
+    python -m lap_tpu_torch.training.train debug --device cpu   # tiny model, fake data
 
-Builds the configured model from a seed, draws one synthetic batch (prompt
-tokens ``arange(max_token_len)``, a language-action span from token 8, loss
-mask all true, random uint8 images, seeded non-zero actions) and takes
-optimizer steps on it, logging loss, gradient norm and step time. It runs on
-the card unless ``--device cpu`` is given. Checkpoints, the data loader, wandb,
-meshes and preemption handling are not ported yet.
+``<config>`` is a named config and ``--a.b value`` overrides any field
+(``config.cli``). The loop, as JAX's:
+
+- ``initialize_checkpoint_dir`` on ``{checkpoint_base_dir}/{name}/{exp_name}``
+  (overwrite wipes it, resume resumes from its latest step);
+- the trainer from the config's seed; unless resuming, the weight loader's
+  weights merged in, with the EMA re-seeded from the merged weights
+  (``:134-145``); when resuming, the model is built empty and the state and
+  the loader's cursor are restored from the latest step (``:232-244``);
+- batches from ``data.loader.create_data_loader``; a log line at the first
+  step and every ``log_interval``; ``val_step`` on the validation loader
+  every ``val_interval`` (``use_validation``), its iterator restarted at its
+  end; a checkpoint every ``save_interval`` and at the last step;
+- SIGTERM: the step in flight finishes, a checkpoint is saved, and the run
+  logs ``exiting after preemption checkpoint at step N`` and ends with exit
+  code 0; otherwise it logs ``training complete at step N``.
+
+It runs on the card unless ``--device cpu`` is given. Metrics go to
+``logging`` (wandb and the metrics logger are ROADMAP item 21); one process
+(``gather_host_json`` is the identity until item 13); no profiler trace or
+batch visualisation. ``Trainer``, ``build_trainer`` and ``fake_train_batch``
+(optimizer steps on one synthetic batch: prompt tokens ``arange``, a
+language-action span from token 8, random uint8 images, seeded actions) stay
+for ``chip_smoke.py``'s timed steps.
 """
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import logging
+import signal
+import sys
+import threading
 import time
 
+import numpy as np
 import torch
 
 from lap_tpu_torch.device import resolve_device
-from lap_tpu_torch.models.lap_model import LAP, LAPConfig, get_vlm_freeze_filter
-from lap_tpu_torch.training.config import TrainConfig, get_config
+from lap_tpu_torch.models.lap_model import LAP, LAPConfig, get_freeze_filter, get_vlm_freeze_filter
+from lap_tpu_torch.training import checkpoints as _checkpoints
+from lap_tpu_torch.training.config import TrainConfig, cli
 from lap_tpu_torch.training.state import TrainState
 from lap_tpu_torch.training.train_step import StepFunctions, make_step_functions
 
 logger = logging.getLogger("lap_tpu_torch.train")
 
 LANGACT_START = 8  # first language-action token of the synthetic prompt
+LOADER_STATE = "dataloader_process_0/dataloader_state.json"
 
 
 def fake_train_batch(cfg: LAPConfig, batch: int, *, device, seed: int = 0):
@@ -50,15 +74,38 @@ def fake_train_batch(cfg: LAPConfig, batch: int, *, device, seed: int = 0):
     return obs, actions
 
 
+def reduce_metrics(metrics: dict) -> dict:
+    """Scalar-reducible entries as floats; arrays of up to 4096 entries by
+    their mean (``lap_tpu/training/metrics_logging.py:86``)."""
+    out = {}
+    for k, v in metrics.items():
+        if isinstance(v, torch.Tensor):
+            v = v.detach().float().cpu().numpy()
+        try:
+            arr = np.asarray(v)
+        except (TypeError, ValueError):
+            continue
+        if arr.dtype == object or arr.dtype.kind in "US" or arr.size == 0:
+            continue
+        if arr.ndim == 0:
+            out[k] = float(arr)
+        elif arr.size <= 4096:
+            out[k] = float(arr.mean())
+    return out
+
+
+def _format(metrics: dict) -> str:
+    return " ".join(f"{k}={v:.9g}" for k, v in sorted(metrics.items()))
+
+
 @dataclasses.dataclass
 class Trainer:
-    """A built model with its step functions, state and random generator."""
+    """A built model with its step functions and state."""
 
     config: TrainConfig
     model: LAP
     steps: StepFunctions
     state: TrainState
-    generator: torch.Generator
 
     def run(self, batch, num_steps: int) -> list[dict]:
         """Take ``num_steps`` optimizer steps on ``batch``; returns one record
@@ -66,7 +113,7 @@ class Trainer:
         records = []
         for i in range(num_steps):
             t0 = time.monotonic()
-            self.state, metrics = self.steps.train_step(self.state, batch, generator=self.generator)
+            self.state, metrics = self.steps.train_step(self.state, batch)
             record = {k: float(metrics[k]) for k in ("loss", "grad_norm", "param_norm")}  # syncs the device
             record["step_ms"] = (time.monotonic() - t0) * 1e3
             records.append(record)
@@ -77,21 +124,24 @@ class Trainer:
         return records
 
 
-def build_trainer(config: TrainConfig, *, device=None, param_dtype: str | None = None) -> Trainer:
-    """The configured model from the config's seed, on the card unless
-    ``device`` says otherwise, with its optimizer state and EMA."""
+def build_trainer(config: TrainConfig, *, device=None, param_dtype: str | None = None,
+                  init_weights: bool = True) -> Trainer:
+    """The configured model from the config's seed (empty when not
+    ``init_weights``: a restore fills it), on the card unless ``device`` says
+    otherwise, with its optimizer state and EMA."""
     device = resolve_device(device)
     dtype = getattr(torch, param_dtype or config.param_dtype)
-    model = LAP(config.model, device=device, init_seed=config.seed, param_dtype=dtype)
+    model = LAP(config.model, device=device, init_seed=config.seed if init_weights else None, param_dtype=dtype)
+    freeze = get_vlm_freeze_filter(config.model) if config.freeze_vlm else get_freeze_filter(config.model)
     steps = make_step_functions(
         model,
         config.optimizer,
         config.lr_schedule,
         ema_decay_for_step=config.get_ema_decay_for_step if config.has_ema else None,
-        freeze_filter=get_vlm_freeze_filter(config.model) if config.freeze_vlm else None,
+        freeze_filter=freeze,
+        seed=config.seed,
     )
-    generator = torch.Generator(device=device).manual_seed(config.seed)
-    return Trainer(config=config, model=model, steps=steps, state=steps.init_fn(), generator=generator)
+    return Trainer(config=config, model=model, steps=steps, state=steps.init_fn())
 
 
 def train(config: TrainConfig, *, device=None, num_steps: int | None = None,
@@ -109,22 +159,160 @@ def train(config: TrainConfig, *, device=None, num_steps: int | None = None,
     return trainer.run(batch, num_steps)
 
 
-def main(argv: list[str] | None = None) -> None:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("config", help="config name (lap, debug)")
-    parser.add_argument("--num_train_steps", type=int, default=None)
-    parser.add_argument("--batch_size", type=int, default=None, help="per-device batch")
-    parser.add_argument("--param_dtype", default=None, choices=("float32", "bfloat16"))
-    parser.add_argument("--freeze_vlm", action="store_true")
-    parser.add_argument("--device", default=None, help="cuda unless given (cpu must be asked for)")
-    args = parser.parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    config = get_config(args.config)
-    if args.freeze_vlm:
-        config = dataclasses.replace(config, freeze_vlm=True)
-    train(config, device=args.device, num_steps=args.num_train_steps,
-          batch_size=args.batch_size, param_dtype=args.param_dtype)
+@torch.no_grad()
+def merge_pretrained(trainer: Trainer, loader) -> None:
+    """Merge a weight loader's weights into the model, and re-seed the EMA
+    (its trainable entries) from the merged weights."""
+    from lap_tpu_torch.training.weight_loaders import load_into
+
+    load_into(trainer.model, loader)
+    state = trainer.state
+    if state.ema_params is not None:
+        params = state.params
+        for name, ema in state.ema_params.items():
+            ema.copy_(params[name])
+
+
+def gather_host_json(payload) -> list:
+    """Every process's JSON payload; one process until ROADMAP item 13."""
+    return [payload]
+
+
+def _collect_assets(config: TrainConfig, loader) -> dict:
+    assets = {}
+    stats = getattr(loader, "norm_stats", None)
+    if stats:
+        assets[f"{config.data.asset_id}/norm_stats.json"] = {"norm_stats": {k: v.to_dict() for k, v in stats.items()}}
+    state_dict = getattr(loader, "state_dict", lambda: None)()
+    if state_dict:
+        for i, st in enumerate(gather_host_json(state_dict)):
+            assets[f"dataloader_process_{i}/dataloader_state.json"] = st
+    return assets
+
+
+@dataclasses.dataclass
+class RunResult:
+    """What a run leaves to a caller in the same process: the trainer (its
+    state as the last step left it), the loader with its live iterator (the
+    next batch is the one a resumed run would take first), and the
+    checkpoint manager. ``close`` stops the loaders' producers."""
+
+    trainer: Trainer
+    loader: object
+    data_iter: object
+    checkpoints: _checkpoints.CheckpointManager
+    metrics: dict  # the last logged step's (the first step is always logged)
+    timings: dict  # restore_s when the run resumed
+    val_iter: object = None
+
+    def close(self) -> None:
+        for it in (self.data_iter, self.val_iter):
+            if it is not None:
+                it.close()
+
+
+def run(config: TrainConfig, *, device=None) -> RunResult:
+    """The training loop of ``scripts/train.py:165-352`` (module header)."""
+    from lap_tpu_torch.data.loader import create_data_loader
+
+    device = resolve_device(device)
+    ckpt_mgr, resuming = _checkpoints.initialize_checkpoint_dir(
+        config.checkpoint_dir, keep_period=config.keep_period, overwrite=config.overwrite, resume=config.resume
+    )
+    trainer = build_trainer(config, device=device, init_weights=not resuming)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    logger.info("training %s/%s: %d params (%s), %d trainable tensors, EMA %s, batch %d on %s",
+                config.name, config.exp_name, n_params, config.param_dtype, len(trainer.state.trainable),
+                "on" if trainer.state.ema_params is not None else "off", config.batch_size, device)
+    timings = {}
+    if resuming:
+        t0 = time.monotonic()
+        ckpt_mgr.restore(None, trainer.state)
+        timings["restore_s"] = time.monotonic() - t0
+        logger.info("resumed from step %d (restored in %.2f s)", trainer.state.step, timings["restore_s"])
+    else:
+        weights = config.weight_loader.build()
+        if weights is not None:
+            merge_pretrained(trainer, weights)
+            logger.info("merged pretrained weights from %s", config.weight_loader)
+
+    loader = create_data_loader(config, device=device, split="train")
+    if resuming:
+        saved = ckpt_mgr.load_assets(trainer.state.step, LOADER_STATE)
+        if saved:
+            loader.load_state_dict(saved)
+            logger.info("restored dataloader state: %s", saved)
+    data_iter = iter(loader)
+    val_loader = val_iter = None
+    if config.use_validation:
+        val_loader = create_data_loader(config, device=device, split="val")
+        val_iter = iter(val_loader)
+
+    preempted = threading.Event()
+
+    def on_sigterm(signum, frame):  # noqa: ARG001
+        logger.warning("SIGTERM received: checkpointing and exiting after this step")
+        preempted.set()
+
+    previous = None
+    try:
+        previous = signal.signal(signal.SIGTERM, on_sigterm)
+    except ValueError:  # not the main thread
+        pass
+
+    start_step = trainer.state.step
+    metrics: dict = {}
+    try:
+        for step in range(start_step, config.num_train_steps):
+            batch = next(data_iter)
+            t0 = time.monotonic()
+            trainer.state, step_metrics = trainer.steps.train_step(trainer.state, batch)
+            if (step + 1) % config.log_interval == 0 or step == start_step:
+                metrics = reduce_metrics(step_metrics)  # syncs the device
+                metrics["step_ms"] = (time.monotonic() - t0) * 1e3
+                logger.info("step %d %s", step + 1, _format(metrics))
+            if val_iter is not None and (step + 1) % config.val_interval == 0:
+                try:
+                    val_metrics = reduce_metrics(trainer.steps.val_step(trainer.state, next(val_iter)))
+                    logger.info("step %d val %s", step + 1, _format(val_metrics))
+                except StopIteration:
+                    val_iter = iter(val_loader)
+            if (step + 1) % config.save_interval == 0 or step + 1 == config.num_train_steps or preempted.is_set():
+                ckpt_mgr.save(step + 1, trainer.state, assets=_collect_assets(config, loader))
+                logger.info("saved checkpoint at step %d (%d bytes in %.2f s)", step + 1,
+                            ckpt_mgr.last_save["bytes"], ckpt_mgr.last_save["seconds"])
+            if preempted.is_set():
+                logger.warning("exiting after preemption checkpoint at step %d", step + 1)
+                break
+        else:
+            logger.info("training complete at step %d", config.num_train_steps)
+    finally:
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
+    return RunResult(trainer=trainer, loader=loader, data_iter=data_iter, checkpoints=ckpt_mgr, metrics=metrics,
+                     timings=timings, val_iter=val_iter)
+
+
+def split_device(argv: list[str]) -> tuple[str | None, list[str]]:
+    """Take ``--device X`` (or ``--device=X``) out of a config command line."""
+    rest, device, i = [], None, 0
+    while i < len(argv):
+        if argv[i] == "--device" and i + 1 < len(argv):
+            device, i = argv[i + 1], i + 2
+        elif argv[i].startswith("--device="):
+            device, i = argv[i].split("=", 1)[1], i + 1
+        else:
+            rest.append(argv[i])
+            i += 1
+    return device, rest
+
+
+def main(argv: list[str] | None = None) -> RunResult:
+    device, rest = split_device(sys.argv[1:] if argv is None else argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname).1s %(name)s: %(message)s",
+                        datefmt="%H:%M:%S")
+    return run(cli(rest), device=device)
 
 
 if __name__ == "__main__":
-    main()
+    main().close()

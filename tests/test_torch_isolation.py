@@ -13,7 +13,8 @@ torch = pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "lap_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-TRAINING_MODULES = ("config", "optimizer", "state", "train", "train_step")
+TRAINING_MODULES = ("config", "optimizer", "state", "train", "train_step", "checkpoints", "weight_loaders", "eval")
+ENTRY_POINT_MODULES = ("data.loader", "utils.cli", "training.eval", "training.weight_loaders")
 QUANT_SERVING_MODULES = ("ops.int8_matmul", "ops.int4_matmul", "models.lora", "models.convert", "policies.policy")
 SERVING_STACK_MODULES = (
     "policies.policy_config", "policies.batching", "serving.serve_policy", "serving.websocket_policy_server",
@@ -25,7 +26,7 @@ JAX_LIBS = ("jax", "jaxlib", "flax", "optax", "orbax")
 
 
 def test_port_imports_with_jax_blocked():
-    blocked = "; ".join(f"sys.modules[{name!r}] = None" for name in JAX_LIBS)
+    blocked = "; ".join(f"sys.modules[{name!r}] = None" for name in (*JAX_LIBS, "scripts", "ml_dtypes"))
     code = (
         "import sys, pkgutil, importlib; " + blocked + "; "
         "import lap_tpu_torch; "
@@ -38,7 +39,7 @@ def test_port_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
     mods = proc.stdout.split()
     assert len(mods) >= 12 + len(TRAINING_MODULES)
-    assert {f"lap_tpu_torch.{m}" for m in QUANT_SERVING_MODULES + SERVING_STACK_MODULES} <= set(mods)
+    assert {f"lap_tpu_torch.{m}" for m in QUANT_SERVING_MODULES + SERVING_STACK_MODULES + ENTRY_POINT_MODULES} <= set(mods)
 
 
 def test_serving_stack_imports_without_its_transport_or_a_native_build():
@@ -120,6 +121,14 @@ def test_no_jax_or_lap_tpu_import_in_source(path):
     text = path.read_text()
     assert not re.search(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|orbax)\b", text, re.M)
     assert not re.search(r"lap_tpu\.|import lap_tpu\b", text)
+    # The JAX-checkpoint export tool imports lap_tpu: the port only reads its output.
+    assert not re.search(r"^\s*(from|import)\s+scripts\b|import_module\(\s*[\"']scripts", text, re.M)
+
+
+def test_export_tool_is_the_only_new_script_that_reads_orbax():
+    text = (REPO / "scripts" / "export_jax_params.py").read_text()
+    assert "from lap_tpu.training.checkpoints import restore_params" in text
+    assert "lap_tpu_torch" not in re.sub(r'""".*?"""', "", text, flags=re.S)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -201,7 +201,7 @@ def test_tokenizer_guard_refuses_before_any_restore(tmp_path):
     for create in (policy_config.create_trained_policy, policy_config.create_trained_policy_ar):
         with pytest.raises(RuntimeError, match="TEST tokenizer"):
             create(config.get_config(CONFIG), tmp_path, device="cpu")
-    with pytest.raises(FileNotFoundError, match="item 12"):
+    with pytest.raises(FileNotFoundError, match="export_jax_params"):
         policy_config.create_trained_policy(config.get_config(CONFIG), tmp_path, device="cpu", allow_test_vocab=True)
 
 

@@ -321,20 +321,69 @@ def test_fake_train_batch_is_the_synthetic_batch_of_the_jax_benchmark():
     assert torch.equal(actions, again)
 
 
-def test_configs_hold_the_jax_values():
-    for name in ("lap", "debug"):
-        ref, got = jax_config.get_config(name), port_config.get_config(name)
+def _assert_same_fields(got, ref, path):
+    if dataclasses.is_dataclass(ref):
         for field in dataclasses.fields(got):
-            if field.name in ("model", "data", "lr_schedule", "optimizer", "ema_schedule_choice"):
-                for sub in dataclasses.fields(getattr(got, field.name)):
-                    assert getattr(getattr(got, field.name), sub.name) == getattr(getattr(ref, field.name), sub.name), (
-                        name, field.name, sub.name)
-            else:
-                assert getattr(got, field.name) == getattr(ref, field.name), (name, field.name)
-    # lap_libero: its model and data (the schedule and weight loader are not ported).
-    ref, got = jax_config.get_config("lap_libero"), port_config.get_config("lap_libero")
-    for part in ("model", "data"):
-        for sub in dataclasses.fields(getattr(got, part)):
-            assert getattr(getattr(got, part), sub.name) == getattr(getattr(ref, part), sub.name), (part, sub.name)
+            _assert_same_fields(getattr(got, field.name), getattr(ref, field.name), f"{path}.{field.name}")
+    elif hasattr(ref, "value") and hasattr(got, "value"):  # the two packages' enums
+        assert got.value == ref.value, path
+    else:
+        assert got == ref, path
+
+
+def test_configs_hold_the_jax_values():
+    """Every field of the port's configs, nested ones included (the weight
+    loader choice, the schedules, the model and data configs), equals JAX's;
+    lap_libero's schedule, EMA choice and weight loader too."""
+    for name in ("lap", "lap_libero", "debug"):
+        _assert_same_fields(port_config.get_config(name), jax_config.get_config(name), name)
     with pytest.raises(ValueError, match="Did you mean"):
         port_config.get_config("lapp")
+
+
+def test_a_run_rebuilt_after_k_steps_repeats_the_uninterrupted_steps():
+    """Each step's noise, flow time and augmentation are a function of the
+    seed and the step: k steps, a rebuild carrying the state over, and N - k
+    more give the losses and parameters of N steps in one go, bit for bit."""
+    config = _small_train_config(batch_size=2)
+    batches = [port_train.fake_train_batch(config.model, 2, device="cpu", seed=s) for s in range(4)]
+
+    def steps(trainer, chosen):
+        return [trainer.run(batch, 1)[0]["loss"] for batch in chosen]
+
+    whole = port_train.build_trainer(config, device="cpu")
+    reference = steps(whole, batches)
+    first = port_train.build_trainer(config, device="cpu")
+    losses = steps(first, batches[:2])
+    rebuilt = port_train.build_trainer(config, device="cpu", init_weights=False)
+    with torch.no_grad():
+        for name, p in rebuilt.state.params.items():
+            p.copy_(first.state.params[name])
+        for dst, src in zip(rebuilt.state.opt_state.mu + rebuilt.state.opt_state.nu,
+                            first.state.opt_state.mu + first.state.opt_state.nu, strict=True):
+            dst.copy_(src)
+        for name, ema in rebuilt.state.ema_params.items():
+            ema.copy_(first.state.ema_params[name])
+    rebuilt.state.step, rebuilt.state.opt_state.count = first.state.step, first.state.opt_state.count
+    losses += steps(rebuilt, batches[2:])
+    assert losses == reference
+    got, want = rebuilt.state.params, whole.state.params
+    assert all(torch.equal(got[n], want[n]) for n in want)
+    assert all(torch.equal(rebuilt.state.ema_params[n], whole.state.ema_params[n]) for n in want if n in
+               whole.state.ema_params)
+
+
+def test_the_embedding_table_gradient_is_the_same_bit_for_bit_every_time():
+    """The table gradient sums the rows of repeated tokens: its order must
+    not vary with the threads, or a resumed run could not repeat an
+    uninterrupted one (indexing's backward varied here; embedding's does not)."""
+    from lap_tpu_torch.models.gemma import Embedder
+
+    embedder = Embedder(5000, 64, device="cpu", dtype=torch.float32)
+    with torch.no_grad():
+        embedder.random_init_(torch.Generator().manual_seed(5))
+    gen = torch.Generator().manual_seed(6)
+    tokens = torch.randint(0, 300, (8, 160), generator=gen, dtype=torch.int32)
+    upstream = torch.randn((8, 160, 64), generator=gen)
+    grads = [torch.autograd.grad(embedder.encode(tokens), embedder.input_embedding, upstream)[0] for _ in range(6)]
+    assert all(torch.equal(g, grads[0]) for g in grads[1:])
