@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Six paths are driven: LAP-3B flow-matching serving in bf16 (phase 6) and
+Seven paths are driven: LAP-3B flow-matching serving in bf16 (phase 6) and
 with int8/int4 expert MLPs (phase 7), LAP-3B AR language-action serving in
 bf16, int8 and int4 (phase 8), the serving stack from raw robot requests and
 a checkpoint directory (phase 9), the LAP-3B training step (phases 11-12),
-and the training entry points with their checkpoints, resume, validation,
-offline eval and serving of the trained step (phase 13).
+the training entry points with their checkpoints, resume, validation,
+offline eval and serving of the trained step (phase 13), and the Gemma3
+family: LAPGemma3-4B flow, AR and quantized serving, its serving stack and
+its training step (phase 14).
 Each is driven with the launch counters set to 0 just before it and read
 just after. Phases, in order; any failure exits non-zero:
  1. build every CUDA kernel of the paths from the sources in this checkout
@@ -32,7 +34,13 @@ just after. Phases, in order; any failure exits non-zero:
     bits at each, and their split-K arrival counters back at zero after all
     the calls; print the forward's and the backward kernels' registers,
     spills, resident blocks per SM and waves beside their plans, and the
-    dequant kernels' beside their launch plan;
+    dequant kernels' beside their launch plan; the LAPGemma3-4B cases of
+    phase 14: the forward (and backward) at the flow and AR prefills' local-
+    and global-layer masks (B=1, T=800, S=800/864, GQA group 2, K=4; the AR
+    local mask with valid rows that see no key), the training call (B=8,
+    T=S=816, its local mask, the group sum at group 2, the same bits twice),
+    the dequant matmuls at gemma3_4b's weights, its 262,144-row vocab head
+    and the expert's gating at K=768 (int4 group 128);
  3. time each kernel, its plain version and one PyTorch library call that
     computes the same function (a yardstick the port never calls), beside the
     least time the card could take (``bound_ms``); the dequant matmuls (every
@@ -101,9 +109,10 @@ just after. Phases, in order; any failure exits non-zero:
     ``attn_impl="xla"`` from the same weights, batch, noise and time, and the
     float32 global gradient norm against a float64 sum over the same
     gradients;
-13. the training entry points at full width and depth (``lap`` with
-    ``--data.repo_id fake``, batch 8, bfloat16 parameters, the VLM frozen:
-    see ``TRAIN_PHASE_DTYPE`` for why), in a run directory inside the
+13. the training entry points at full width with both experts cut to
+    ``TRAIN_PHASE_DEPTH`` layers (``lap`` with ``--data.repo_id fake``,
+    batch 8, bfloat16 parameters, the VLM frozen: see ``TRAIN_PHASE_DTYPE``
+    for why), in a run directory inside the
     checkout that is deleted at the end: ``train.main`` run 1 takes 2 steps
     and saves (launches: 36 forward and 18 of each backward kernel a step);
     the loss of the next batch on its state in memory; run 2 resumes and
@@ -114,9 +123,31 @@ just after. Phases, in order; any failure exits non-zero:
     ``action_prediction_l2``, 18 + 18 forward launches); that step directory
     served by ``create_trained_policy`` in bf16 and int8 (18 flash, and 360
     dequant launches in int8); the bytes, seconds and free disk of the saves
-    and restores (a ``train_entry_points`` JSON line).
+    and restores (a ``train_entry_points`` JSON line);
+14. the Gemma3 family (``lap_gemma3_4b``: gemma3_4b VLM, gemma3_300m expert
+    with adaRMS, SigLIP So400m/14 with Gemma3's soft-embedding norm and
+    bias-free head, 4.82 B parameters, bf16, seeded random weights): the
+    dummy LAPGemma3 in f32 on the card against the CPU (actions within
+    1e-4, AR tokens equal); ``N_REQUESTS`` flow requests through
+    ``Policy.infer`` (34 flash launches each, the flash masks those of the
+    phase-2 gemma3 cases), flash against einsum actions (the flow prompt
+    has no valid row without a key), one profiled request; int8 and int4
+    flow (340 dequant launches a request: the expert's gating); 64-token AR
+    requests in bf16, int8 and int4 (34 flash launches for the right-aligned
+    prefill, whose local layers have 15 valid rows with no key; 171 dequant
+    launches a token quantized), a profiled 16-token request each; the
+    teacher-forced quantized logits against the plain versions as in phase
+    10; the serving stack (the model written to a checkpoint directory,
+    restored by ``serve_policy.create_policy --config lap_gemma3_4b``, a raw
+    request through ``Gemma3Tokenizer`` with the test vocabulary, its
+    actions bit-equal to the in-memory model's); the training step at full
+    width and ``G3_TRAIN_DEPTH`` layers (f32 parameters, AdamW, EMA, batch
+    8: 12 forward and 6 of each backward launch a step, the loss at fixed
+    noise and time falls, peak memory, one profiled step); the flash
+    forward at the prefills and the backward at the training shape timed;
+    a ``gemma3`` JSON line.
 
-The serving model is freed before the training phase. The last lines of
+The serving models are freed before the training phases. The last lines of
 standard output are the ``kernels`` JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": ...}``; whether the
 native host ops (``lap_tpu_torch/native.py``) loaded is logged in phase 9. The script
@@ -181,10 +212,15 @@ NORM_REL_TOL = 1e-5
 # to bf16 once: one bf16 rounding plus the summation order.
 QUANT_RTOL, QUANT_ATOL_OF_MAX = 8e-3, 1e-4
 QUANT_ROWS = (1, 16, 100, 128)
-# (name, K, N) of every quantized weight of LAP-3B serving.
+# (name, K, N) of every quantized weight of LAP-3B serving, then of
+# LAPGemma3-4B serving (phase 14): gemma3_4b's q and kv (both [2560, 2048]),
+# attn_vec, gating and linear, the 262,144-row vocab head, and the
+# gemma3_300m expert's gating (K = 768: int4 takes group 128 there).
 QUANT_SHAPES = (
     ("q_attn_vec", 2048, 2048), ("mlp_gate_up", 2048, 32768), ("mlp_down", 16384, 2048),
     ("vocab", 2048, 257152), ("expert_gate_up", 1024, 8192), ("expert_down", 4096, 1024),
+    ("g3_q_kv", 2560, 2048), ("g3_attn_vec", 2048, 2560), ("g3_gating", 2560, 20480), ("g3_linear", 10240, 2560),
+    ("g3_vocab", 2560, 262144), ("g3_expert_gating", 768, 6144),
 )
 # (shape, rows) timed: every quantized shape at the rows its path gives it
 # (AR steps: 1 row; the flow expert: 16 rows), the three largest at 16 rows
@@ -193,6 +229,8 @@ QUANT_SHAPES = (
 QUANT_TIMED = (
     ("mlp_down", 1), ("mlp_down", 16), ("mlp_gate_up", 1), ("mlp_gate_up", 16), ("vocab", 1), ("vocab", 16),
     ("q_attn_vec", 1), ("expert_gate_up", 16), ("expert_down", 16), ("mlp_gate_up", 100), ("mlp_gate_up", 128),
+    ("g3_vocab", 1), ("g3_vocab", 16), ("g3_gating", 1), ("g3_linear", 1), ("g3_q_kv", 1), ("g3_attn_vec", 1),
+    ("g3_expert_gating", 16),
 )
 # The shape whose times stand in the kernels JSON line: the vocab head of an
 # AR step, the largest weight read of a decode step.
@@ -256,10 +294,35 @@ BATCH2_CASE, BATCH2_PROMPT_VALID = "serving_batch2_prefill", (78, 108)
 TOKEN_BUCKET = 64
 BUCKET_CASE, BUCKET_PROMPT_VALID = "serving_token_bucket_prefill", 92
 BUCKET_PREFIX = 512 + math.ceil(BUCKET_PROMPT_VALID / TOKEN_BUCKET) * TOKEN_BUCKET
+# Phase 14: LAPGemma3-4B (the lap_gemma3_4b config) at full width. Its
+# model-ready requests hold a prompt laid out as Gemma3Tokenizer lays it out:
+# BOS, the user turn, G3_SYSTEM ids of a system message, two camera blocks
+# (BOI, 256 placeholders, END_IMAGE, newline), G3_TEXT ids of an instruction,
+# the end of turn and the model turn: G3_VALID of the 800 slots.
+G3_CONFIG = "lap_gemma3_4b"
+G3_PROMPT_LEN = 800
+G3_SYSTEM, G3_TEXT = 8, 40
+G3_VALID = 4 + G3_SYSTEM + 2 + 2 * 259 + G3_TEXT + 5
+G3_HEADS = (8, 4, 256)  # gemma3_4b: N, K, H
+# Flash-forward cases at the prefills of phase 14's requests (phase 2 holds
+# them; phase 14 checks that the path gives the kernel these masks): the
+# left-aligned flow prefill and the right-aligned AR prefill with AR_STEPS
+# decode slots, on a local (sliding window) and a global layer.
+G3_FLOW_LOCAL, G3_FLOW_GLOBAL = "gemma3_flow_prefill_local", "gemma3_flow_prefill_global"
+G3_AR_LOCAL, G3_AR_GLOBAL = "gemma3_ar_prefill_local", "gemma3_ar_prefill_global"
+G3_TRAIN_CASE = "gemma3_training_local"  # the backward case at the training step's shape and local mask
+# The training step: full width, depth cut to one period of 5 local + 1 global
+# layers (the full depth's f32 parameters, gradients, Adam moments and EMA
+# take ~20 B a parameter x 4.8 B, more than the card holds).
+G3_TRAIN_DEPTH = 6
+G3_TRAIN_STEPS = 4  # after one warm-up step
+G3_AR_REQUESTS = 3
+G3_QUANT_FLOW_REQUESTS = 3
+
 # Forward cases run twice to show that two calls give the same bits.
-FWD_DETERMINISM_CASES = (PREFILL_CASE, BATCH2_CASE, BUCKET_CASE, TRAINING_CASE)
+FWD_DETERMINISM_CASES = (PREFILL_CASE, BATCH2_CASE, BUCKET_CASE, TRAINING_CASE, G3_FLOW_LOCAL)
 # Backward cases run twice to show that two calls give the same bits.
-DETERMINISM_CASES = (TRAINING_CASE, "gqa_group4_h128")
+DETERMINISM_CASES = (TRAINING_CASE, "gqa_group4_h128", G3_TRAIN_CASE)
 
 
 _START = time.monotonic()
@@ -338,10 +401,94 @@ def ar_prefill_mask(device):
     return torch.nn.functional.pad(aligned, (0, AR_STEPS))
 
 
+def g3_prompt(seed: int):
+    """Phase 14's synthetic prompt: (ids [800] int32, valid count)."""
+    import numpy as np
+
+    from lap_tpu_torch.models import tokenizer as tk
+
+    rng = np.random.default_rng(seed)
+    block = [tk.GEMMA3_BEGIN_IMAGE_TOKEN, *[tk.GEMMA3_IMAGE_TOKEN] * tk.GEMMA3_IMAGE_PLACEHOLDER_LEN,
+             tk.GEMMA3_END_IMAGE_TOKEN, tk.GEMMA3_NEWLINE_TOKEN]
+    seq = [tk.GEMMA3_BOS_TOKEN, tk.GEMMA3_START_OF_TURN_TOKEN, tk.GEMMA3_USER_TOKEN, tk.GEMMA3_NEWLINE_TOKEN,
+           *rng.integers(300, 2000, G3_SYSTEM), tk.GEMMA3_NEWLINE_TOKEN, tk.GEMMA3_NEWLINE_TOKEN, *block * 2,
+           *rng.integers(300, 2000, G3_TEXT), tk.GEMMA3_END_OF_TURN_TOKEN, tk.GEMMA3_NEWLINE_TOKEN,
+           tk.GEMMA3_START_OF_TURN_TOKEN, tk.GEMMA3_MODEL_TOKEN, tk.GEMMA3_NEWLINE_TOKEN]
+    tokens = np.zeros(G3_PROMPT_LEN, np.int32)
+    tokens[: len(seq)] = seq
+    return tokens, len(seq)
+
+
+def g3_window() -> int:
+    from lap_tpu_torch.models import gemma3
+    from lap_tpu_torch.training.config import get_config
+
+    return gemma3.get_config(get_config(G3_CONFIG).model.paligemma_variant).sliding_window_size
+
+
+def g3_prefill_masks(device) -> dict:
+    """The masks the flash forward gets at phase 14's prefills, as the model
+    builds them: the flow prefix (left-aligned) and the AR prefill
+    (right-aligned, AR_STEPS decode slots), each on a local layer (the
+    sliding window over RoPE positions against cache slots) and a global
+    one, with the image blocks OR'd in."""
+    import torch
+
+    from lap_tpu_torch.models import gemma3
+    from lap_tpu_torch.models.lap_gemma3 import LAPGemma3, left_to_right_align_with_image_mask
+    from lap_tpu_torch.ops.masks import make_attn_mask
+
+    tokens, valid = g3_prompt(0)
+    image = torch.from_numpy(tokens).to(device)[None] == LAPGemma3.IMAGE_TOKEN
+    input_mask = torch.arange(G3_PROMPT_LEN, device=device)[None] < valid
+    attn = make_attn_mask(input_mask, torch.zeros_like(input_mask))
+    window, out = g3_window(), {}
+    for name, is_global in ((G3_FLOW_LOCAL, False), (G3_FLOW_GLOBAL, True)):
+        out[name] = gemma3.effective_mask(attn, torch.cumsum(input_mask, dim=1) - 1, G3_PROMPT_LEN,
+                                          is_global=is_global, window=window, image_mask=image)
+    x = torch.zeros((1, G3_PROMPT_LEN, 1), device=device)
+    _, aligned, attn_al, image_al = left_to_right_align_with_image_mask(x, input_mask, attn, image)
+    attn_al = torch.nn.functional.pad(attn_al, (0, AR_STEPS))
+    for name, is_global in ((G3_AR_LOCAL, False), (G3_AR_GLOBAL, True)):
+        out[name] = gemma3.effective_mask(attn_al, torch.cumsum(aligned, dim=1) - 1, G3_PROMPT_LEN + AR_STEPS,
+                                          is_global=is_global, window=window, image_mask=image_al)
+    out["ar_valid_rows"] = aligned
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+def g3_training_mask(batch, device, *, is_global: bool = False):
+    """The mask of one layer of the LAPGemma3-4B training step's joint call
+    (800 prompt tokens, the synthetic batch's image blocks and
+    language-action span, 16 action tokens), as ``compute_loss`` builds it,
+    [batch, 816, 816]."""
+    import torch
+
+    from lap_tpu_torch.models import gemma3
+    from lap_tpu_torch.models.lap_gemma3 import LAPGemma3
+    from lap_tpu_torch.training.config import get_config
+    from lap_tpu_torch.training.train import fake_train_batch
+
+    obs, _ = fake_train_batch(get_config(G3_CONFIG).model, 1, device=device)
+    prefix, langact = obs.tokenized_prompt_mask.to(torch.bool), obs.tokenized_langact_mask.to(torch.bool)
+    suffix = torch.ones((1, ACTION_HORIZON), dtype=torch.bool, device=device)
+    suffix_ar = torch.zeros_like(suffix)
+    suffix_ar[:, 0] = True
+    action_view = prefix & ~langact  # LAPGemma3._build_prefix_action_mask
+    # Neither method reads the model: called on the class.
+    mask = LAPGemma3._build_combined_attention_mask(None, prefix, langact, action_view, suffix, suffix_ar)
+    positions = LAPGemma3._build_combined_positions(None, prefix, action_view, suffix)
+    image = torch.nn.functional.pad(obs.tokenized_prompt == LAPGemma3.IMAGE_TOKEN, (0, ACTION_HORIZON))
+    mask = gemma3.effective_mask(mask, positions, mask.shape[-1], is_global=is_global, window=g3_window(),
+                                 image_mask=image)
+    return mask.expand(batch, -1, -1).contiguous()
+
+
 def kernel_cases(device):
     import torch
 
     g = torch.Generator(device=device).manual_seed(0)
+    n3, k3, h3 = G3_HEADS
+    g3 = g3_prefill_masks(device)
 
     def rand_mask(b, t, s, p, dead_rows=0):
         m = torch.rand((b, t, s), generator=g, device=device) < p
@@ -365,6 +512,8 @@ def kernel_cases(device):
         ("head_dim_128", (1, 384, 384, 8, 1, 128), prefix_lm_mask([300], [20], 384, device)),
         ("fully_masked_rows", (1, 257, 257, 8, 1, 256), rand_mask(1, 257, 257, 0.5, dead_rows=40)),
         ("ragged_t_s", (1, 100, 333, 4, 1, 256), rand_mask(1, 100, 333, 0.5)),
+        *((name, (1, G3_PROMPT_LEN, g3[name].shape[-1], n3, k3, h3), g3[name])
+          for name in (G3_FLOW_LOCAL, G3_FLOW_GLOBAL, G3_AR_LOCAL, G3_AR_GLOBAL)),
     ]
 
 
@@ -494,6 +643,38 @@ def time_flash_kernel(device):
     )
 
 
+def time_gemma3_flash_forward(device) -> dict:
+    """The flash forward at phase 14's prefills (B=1, T=800, K=4, H=256, the
+    local-layer masks of the flow and the AR prefill) by device time, beside
+    its plain version, SDPA's device time (a yardstick) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=device).manual_seed(18)
+    masks = g3_prefill_masks(device)
+    n, kh, h = G3_HEADS
+    out = {}
+    for name in (G3_FLOW_LOCAL, G3_AR_LOCAL):
+        mask = masks[name]
+        t, s = mask.shape[1:]
+        q = torch.randn((1, t, n, h), generator=g, device=device).to(torch.bfloat16)
+        k, v = (torch.randn((1, s, kh, h), generator=g, device=device).to(torch.bfloat16) for _ in range(2))
+        device_ms = device_ms_per_call([lambda: fa.flash_attention_forward(q, k, v, mask)], iters=50)
+        plain_ms = time_cuda(lambda: fa.flash_attention_plain(q, k, v, mask), iters=10)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        library_ms = device_ms_per_call(
+            [lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)], iters=50)
+        bound_ms, bound_by, flops_ms, bytes_ms = flash_forward_bound(mask, q, k, v)
+        out[name] = dict(device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        log(f"timing flash_attention_fwd {name} B1 T{t} S{s} N{n} K{kh} H{h}: device_ms={device_ms:.5f} "
+            f"plain_ms={plain_ms:.5f} library_ms(sdpa, device time)={library_ms:.5f} bound_ms={bound_ms:.5f} "
+            f"({bound_by}: flops -> {flops_ms:.5f} ms, bytes -> {bytes_ms:.5f} ms; {int(mask.sum())} pairs)")
+    return out
+
+
 def flash_forward_bound(mask, q, k, v):
     """Least time for one forward call, (ms, "operations" or "bytes",
     flops_ms, bytes_ms): only the unmasked (query, key) pairs need the two
@@ -542,6 +723,8 @@ def backward_cases(device):
         (TRAINING_CASE, (TRAIN_BATCH, LAP_PREFIX, LAP_PREFIX + ACTION_HORIZON, 8, 1, 256),
          training_mask(TRAIN_BATCH, device)),
         ("gqa_group4_h128", (2, 300, 270, 8, 2, 128), gqa4),
+        (G3_TRAIN_CASE, (TRAIN_BATCH, G3_PROMPT_LEN + ACTION_HORIZON, G3_PROMPT_LEN + ACTION_HORIZON, *G3_HEADS),
+         g3_training_mask(TRAIN_BATCH, device)),
     ]
 
 
@@ -699,26 +882,33 @@ def time_delta_library(out, dout, delta):
     return device_ms_per_call([call], iters=50)
 
 
-def time_flash_backward(device, batch):
+def time_flash_backward(device, batch, *, gemma3: bool = False):
     """The backward at the training shape: the delta kernel, the dQ kernel and
     the dK/dV kernel with its group-sum pass each alone (from a given delta;
     CUDA events, except the delta kernel and the pass: profiler device time),
     the pass alone, and the whole ``flash_attention_backward`` as the path
     calls it (the output gradient's copy, delta once, dQ, dK/dV and the pass),
     beside their bounds, the plain versions and autograd through
-    ``F.scaled_dot_product_attention``."""
+    ``F.scaled_dot_product_attention``. With ``gemma3``: at the LAPGemma3-4B
+    training shape (T = S = 816, K = 4, contiguous q) and its local mask."""
     import torch
     import torch.nn.functional as F
 
     from lap_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=device).manual_seed(5)
-    b, t, s, n, kh, h = batch, LAP_PREFIX, LAP_PREFIX + ACTION_HORIZON, 8, 1, 256
-    mask = training_mask(b, device)
-    q = training_queries(b, g, device)
+    if gemma3:
+        b, t, s = batch, G3_PROMPT_LEN + ACTION_HORIZON, G3_PROMPT_LEN + ACTION_HORIZON
+        n, kh, h = G3_HEADS
+        mask = g3_training_mask(b, device)
+        q, dout = (torch.randn((b, t, n, h), generator=g, device=device).to(torch.bfloat16) for _ in range(2))
+    else:
+        b, t, s, n, kh, h = batch, LAP_PREFIX, LAP_PREFIX + ACTION_HORIZON, 8, 1, 256
+        mask = training_mask(b, device)
+        q = training_queries(b, g, device)
+        dout = training_queries(b, g, device)  # a slice of the joint tensor, as on the path
     k = torch.randn((b, s, kh, h), generator=g, device=device).to(torch.bfloat16)
     v = torch.randn((b, s, kh, h), generator=g, device=device).to(torch.bfloat16)
-    dout = training_queries(b, g, device)  # a slice of the joint tensor, as on the path
     out, lse = fa.flash_attention_forward(q, k, v, mask)
     scale = h**-0.5
     dout_c = dout.contiguous()
@@ -833,10 +1023,19 @@ def quant_kinds():
     from lap_tpu_torch.ops import int4_matmul as i4
     from lap_tpu_torch.ops import int8_matmul as i8
 
+    def quantize_int4(w):  # the group the serving path takes for this K (128 at K = 768)
+        return i4.quantize_int4(w, group_size=int4_group(w.shape[0]))
+
     return (
         ("int8_matmul", i8, i8.quantize_int8, i8.int8_matmul, i8.int8_matmul_plain),
-        ("int4_matmul", i4, i4.quantize_int4, i4.int4_matmul, i4.int4_matmul_plain),
+        ("int4_matmul", i4, quantize_int4, i4.int4_matmul, i4.int4_matmul_plain),
     )
+
+
+def int4_group(k: int) -> int:
+    from lap_tpu_torch.models.lora import _int4_group
+
+    return _int4_group(k)
 
 
 def dequant_kernel_info() -> None:
@@ -951,7 +1150,7 @@ def dequant_bound(name, m, k, n):
     """Least time for one call: its bytes (x, the packed weight and scales
     read once, out written once) at 3.35 TB/s, or its 2MKN bf16 operations
     at 989 TFLOP/s, whichever is larger."""
-    weight = k * n + n * 4 if name == "int8_matmul" else k * n // 2 + (k // 256) * n * 4
+    weight = k * n + n * 4 if name == "int8_matmul" else k * n // 2 + (k // int4_group(k)) * n * 4
     nbytes = m * k * 2 + weight + m * n * 2
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     flops_ms = 2 * m * k * n / PEAK_BF16_FLOPS * 1e3
@@ -1005,7 +1204,7 @@ def time_quant_kernels(device):
                 out[name][(shape_name, m)] = dict(
                     ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 )
-                plan = i8.launch_plan(name[:4], m, k, n, 256 if name == "int4_matmul" else None, sms)
+                plan = i8.launch_plan(name[:4], m, k, n, int4_group(k) if name == "int4_matmul" else None, sms)
                 one_row = out[name].get((shape_name, 1))
                 log(f"timing {name} {shape_name} M={m} K={k} N={n} grid={plan['grid']} "
                     f"(row tiles, column blocks, splits; {plan['chunks_per_split']} chunks a split, "
@@ -1777,7 +1976,7 @@ def plain_in_float64(name):
     return int8 if name == "int8_matmul" else int4
 
 
-def check_ar_kernels_against_plain(model, config, device):
+def check_ar_kernels_against_plain(model, config, device, request=None):
     """Quantized AR decode with the dequant kernels against the same model
     with the plain versions in their place, fed the same tokens, beside the
     plain versions against themselves with float64 sums (the path's rounding
@@ -1792,7 +1991,8 @@ def check_ar_kernels_against_plain(model, config, device):
     def rel(a, b):
         return ((a - b).norm() / b.norm()).item()
 
-    obs = CoTObservation.from_dict(_stack_batch([make_request(400, config)]), device=device)
+    request = make_request(400, config) if request is None else request
+    obs = CoTObservation.from_dict(_stack_batch([request]), device=device)
     model.quantize_(None)
     _, exact = ar_logits(model, obs)
     failures = []
@@ -2097,6 +2297,12 @@ def run_training(device):
 TRAIN_PHASE_DTYPE = "bfloat16"
 TRAIN_PHASE_FREEZE_VLM = "true"
 TRAIN_PHASE_STEPS = 2  # run 1 takes these steps and saves at the last
+# Phase 14 writes its 9.6 GB serving checkpoint too: at full depth (two step
+# directories of 16.0 GB) the three phases would write 48.3 GB, the whole
+# 45 GiB. The phase runs the `lap` config at full width with both experts
+# cut to this depth (variants registered as `<name>_depth<N>`): two step
+# directories of ~10 GB.
+TRAIN_PHASE_DEPTH = 9
 
 
 def state_checksums(state) -> dict:
@@ -2149,15 +2355,22 @@ def run_train_entry_points(device):
     import numpy as np
     import torch
 
+    from lap_tpu_torch.models import gemma
     from lap_tpu_torch.policies import policy_config
     from lap_tpu_torch.training import eval as port_eval
     from lap_tpu_torch.training import train as port_train
     from lap_tpu_torch.training.config import cli
     from lap_tpu_torch.training.train_step import step_generator
 
-    log(f"train entry points: parameters in {TRAIN_PHASE_DTYPE}, --freeze_vlm {TRAIN_PHASE_FREEZE_VLM}: a run may "
-        f"write 45 GiB to the host's disk, phase 9 writes 6.7 GB, and two step directories with every "
-        f"parameter trained would be 2 x 33.5 GB in bfloat16 (2 x 67 GB in float32)")
+    variants = []
+    for base in ("gemma_2b", "gemma_300m"):
+        name = f"{base}_depth{TRAIN_PHASE_DEPTH}"
+        gemma._VARIANTS[name] = {**gemma._VARIANTS[base], "depth": TRAIN_PHASE_DEPTH}
+        variants.append(name)
+    log(f"train entry points: parameters in {TRAIN_PHASE_DTYPE}, --freeze_vlm {TRAIN_PHASE_FREEZE_VLM}, depth "
+        f"{TRAIN_PHASE_DEPTH}: a run may write 45 GiB to the host's disk, phase 9 writes 6.7 GB and phase 14 "
+        f"9.6 GB, and two step directories with every parameter trained would be 2 x 33.5 GB in bfloat16 "
+        f"(2 x 67 GB in float32) at full depth")
     # In the checkout, not TMPDIR (which may be memory): tens of GB.
     run_dir = Path(tempfile.mkdtemp(prefix=".train_phase_", dir=REPO))
     numbers = {"dtype": TRAIN_PHASE_DTYPE, "freeze_vlm": TRAIN_PHASE_FREEZE_VLM}
@@ -2165,7 +2378,8 @@ def run_train_entry_points(device):
     try:
         config_args = ["lap", "--exp_name", "smoke", "--checkpoint_base_dir", str(run_dir), "--data.repo_id", "fake",
                        "--data.data_mix", "none", "--batch_size", str(TRAIN_BATCH), "--param_dtype",
-                       TRAIN_PHASE_DTYPE, "--freeze_vlm", TRAIN_PHASE_FREEZE_VLM, "--save_interval", "1000"]
+                       TRAIN_PHASE_DTYPE, "--freeze_vlm", TRAIN_PHASE_FREEZE_VLM, "--save_interval", "1000",
+                       "--model.paligemma_variant", variants[0], "--model.action_expert_variant", variants[1]]
 
         def args(*extra):
             return [*config_args, "--device", str(device), *extra]
@@ -2297,6 +2511,418 @@ def run_train_entry_points(device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: LAPGemma3-4B (lap_gemma3_4b) at full width
+# ---------------------------------------------------------------------------
+
+
+def g3_request(seed: int, config) -> dict:
+    """One model-ready request of phase 14: uint8 cameras, state, the
+    synthetic Gemma3 prompt (``g3_prompt``) in 800 slots."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = config.image_resolution
+    tokens, valid = g3_prompt(seed)
+    return {
+        "image": {k: rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for k in config.image_keys},
+        "image_mask": {k: np.bool_(True) for k in config.image_keys},
+        "state": rng.standard_normal(config.action_dim).astype(np.float32),
+        "tokenized_prompt": tokens,
+        "tokenized_prompt_mask": np.arange(G3_PROMPT_LEN) < valid,
+    }
+
+
+def quantized_calls(model, experts) -> int:
+    """Dequant matmuls one call of ``experts``' layers makes at decode size:
+    the weights of those experts that carry quantized copies."""
+    calls = 0
+    for block in model.llm.layers:
+        for i in experts:
+            mods = [block.mlp[i], block.attn.attn_vec_einsum[i]]
+            mods += [block.attn.qkv_einsum[i]] if block.attn.fused_qkv else [block.attn.q_einsum[i],
+                                                                               block.attn.kv_einsum[i]]
+            for m in mods:
+                calls += sum(m.quantized(prefix) is not None for prefix, *_ in m.quant_targets())
+    return calls
+
+
+def check_g3_masks(seen, cases, what: str) -> dict:
+    """Every mask the path gave the flash forward is one of ``cases``
+    (name -> mask, batch rows in any order); returns how many of each."""
+    import torch
+
+    counts = dict.fromkeys(cases, 0)
+    for m in seen:
+        name = next((n for n, c in cases.items() if m.shape == c.shape and (torch.equal(m, c) or torch.equal(m, c.flip(0)))),
+                    None)
+        if name is None:
+            raise AssertionError(f"gemma3 {what}: a flash mask {tuple(m.shape)} is none of its kernel cases {list(cases)}")
+        counts[name] += 1
+    log(f"gemma3 {what}: the {len(seen)} masks the flash forward was given are its kernel cases' ({counts})")
+    return counts
+
+
+def run_gemma3_serving(device) -> dict:
+    """Phase 14, serving: the full-width lap_gemma3_4b policy in bf16 from
+    seeded random weights: flow requests (bf16, then int8 and int4 copies),
+    flash against einsum actions, AR requests in bf16, int8 and int4 with the
+    teacher-forced kernel check, and the serving stack (a checkpoint
+    directory restored through ``serve_policy.create_policy`` and a raw
+    request through ``Gemma3Tokenizer``). Returns launch totals and numbers."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lap_tpu_torch.models.types import CoTObservation
+    from lap_tpu_torch.policies.policy import ARPolicy, Policy, _stack_batch
+    from lap_tpu_torch.serving import serve_policy
+    from lap_tpu_torch.training import checkpoints
+    from lap_tpu_torch.training.config import get_config
+
+    train_config = get_config(G3_CONFIG)
+    config = dataclasses.replace(train_config.model, stop_action_to_vlm_grad=False)
+    t0 = time.monotonic()
+    model = config.create_module(device=device, init_seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    depth = len(model.llm.layers)
+    n_global = sum(model.llm.is_global)
+    numbers = {"params": n_params, "depth": depth}
+    log(f"gemma3: built LAPGemma3-4B ({type(model).__name__}, {n_params} params, bf16, {depth} layers of which "
+        f"{n_global} global) in {time.monotonic() - t0:.1f} s")
+    launches = {"flash": 0, "int8": 0, "int4": 0}
+    cases = {name: m for name, _, m in kernel_cases(device) if name.startswith("gemma3_")}
+    prefill = g3_prefill_masks(device)
+    flow_cases = {n: cases[n] for n in (G3_FLOW_LOCAL, G3_FLOW_GLOBAL)}
+    ar_cases = {n: cases[n] for n in (G3_AR_LOCAL, G3_AR_GLOBAL)}
+    valid = torch.arange(G3_PROMPT_LEN, device=device)[None] < G3_VALID
+    flow_dead = int((~prefill[G3_FLOW_LOCAL].any(-1) & valid).sum())
+    ar_dead = int((~prefill[G3_AR_LOCAL].any(-1) & prefill["ar_valid_rows"]).sum())
+    numbers.update(flow_dead_valid_rows=flow_dead, ar_dead_valid_rows_per_local_layer=ar_dead)
+    log(f"gemma3: the request's prompt holds {G3_VALID} valid tokens of {G3_PROMPT_LEN}; valid rows with no key on "
+        f"a local layer: flow prefill {flow_dead}, AR prefill {ar_dead} (right-aligned: the sliding window compares "
+        f"positions with cache slots)")
+    if flow_dead:
+        raise AssertionError("the flow request has dead valid rows: flash and einsum would differ there")
+
+    # Flow serving, bf16.
+    policy = Policy(model, num_steps=10, seed=0)
+    requests = [g3_request(i, config) for i in range(N_REQUESTS)]
+    policy.infer(requests[0])
+    reset_launch_counters()
+    latencies, per_request = [], []
+    with flash_masks() as seen:
+        for req in requests:
+            before = serving_launches()
+            out = policy.infer(req)
+            per_request.append(tuple(a - b for a, b in zip(serving_launches(), before)))
+            latencies.append(out["policy_timing"]["infer_ms"])
+            if out["actions"].shape != (config.action_horizon, config.action_dim) or not np.isfinite(
+                    out["actions"]).all():
+                raise AssertionError(f"gemma3 flow: bad actions {out['actions'].shape}")
+    launches["flash"] += serving_launches()[0]
+    if any(c != (depth, 0, 0) for c in per_request):
+        raise AssertionError(f"gemma3 flow: expected {depth} flash and no dequant launches a request, got {per_request}")
+    counts = check_g3_masks(seen, flow_cases, "flow prefill")
+    if counts[G3_FLOW_GLOBAL] != n_global * N_REQUESTS:
+        raise AssertionError(f"gemma3 flow: {counts} masks, expected {n_global} global layers a request")
+    del seen
+    numbers["flow_p50_ms"], numbers["flow_p90_ms"] = percentiles(latencies)
+    log(f"gemma3 flow: {len(requests)} requests at batch 1, {depth} flash launches each; infer "
+        f"p50_ms={numbers['flow_p50_ms']:.3f} p90_ms={numbers['flow_p90_ms']:.3f} "
+        f"chunk_rate_hz={1000.0 / numbers['flow_p50_ms']:.3f} all_ms={[round(x, 3) for x in latencies]} "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 2**30:.2f}")
+
+    # Flash against einsum attention on one request, same noise.
+    obs = CoTObservation.from_dict(_stack_batch([requests[0]]), device=device)
+    noise = torch.randn((1, config.action_horizon, config.action_dim),
+                        generator=torch.Generator(device=device).manual_seed(5), device=device)
+    a_flash = model.sample_actions(obs, noise=noise)
+    model.set_attn_impl("xla")
+    a_xla = model.sample_actions(obs, noise=noise)
+    model.set_attn_impl(config.attn_impl)
+    rel = ((a_flash - a_xla).norm() / a_xla.norm()).item()
+    numbers["flow_flash_vs_xla_rel"] = rel
+    log(f"gemma3 path: flash vs xla attention actions rel_err={rel:.3e} (tol {PATH_REL_TOL}; {flow_dead} dead valid "
+        f"rows) |actions|_max={a_xla.abs().max().item():.3e}")
+    if not (torch.isfinite(a_flash).all() and rel <= PATH_REL_TOL):
+        raise AssertionError(f"gemma3: flash vs xla actions differ: rel {rel}")
+    profile_one_request(policy, requests[0], what="gemma3 flow request")
+
+    # Quantized flow: the action expert's weights that carry copies, at 16
+    # rows an Euler step; the 800-row prefill keeps the exact product.
+    for mode in ("int8", "int4"):
+        model.quantize_(mode)
+        expected_flow = quantized_calls(model, experts=(1,)) * 10
+        policy = Policy(model, num_steps=10, seed=0)
+        policy.infer(requests[0])
+        reset_launch_counters()
+        lat, per = [], []
+        for req in requests[:G3_QUANT_FLOW_REQUESTS]:
+            before = serving_launches()
+            out = policy.infer(req)
+            per.append(tuple(a - b for a, b in zip(serving_launches(), before)))
+            lat.append(out["policy_timing"]["infer_ms"])
+        want = (depth, expected_flow if mode == "int8" else 0, expected_flow if mode == "int4" else 0)
+        if any(c != want for c in per):
+            raise AssertionError(f"gemma3 {mode} flow: expected {want} (flash, int8, int4) launches, got {per}")
+        for key, n in zip(("flash", "int8", "int4"), serving_launches()):
+            launches[key] += n
+        got = model.sample_actions(obs, noise=noise)
+        numbers[f"flow_{mode}_p50_ms"] = percentiles(lat)[0]
+        log(f"gemma3 quant flow {mode}: (flash, int8, int4) launches per request {want}; infer "
+            f"p50_ms={numbers[f'flow_{mode}_p50_ms']:.3f} all_ms={[round(x, 3) for x in lat]}; actions vs bf16 "
+            f"rel_err={((got - a_flash).norm() / a_flash.norm()).item():.3e} (information)")
+    model.quantize_(None)
+
+    # AR serving, AR_STEPS tokens, bf16 / int8 / int4.
+    vocab = model.llm.embedder.input_embedding.shape[0]
+    ar_requests = [g3_request(300 + i, config) for i in range(G3_AR_REQUESTS)]
+    ar_obs = CoTObservation.from_dict(_stack_batch([ar_requests[0]]), device=device)
+    for mode in ("bf16", "int8", "int4"):
+        model.quantize_(None if mode == "bf16" else mode)
+        per_token = quantized_calls(model, experts=(0,)) + (model.llm.embedder.quantized("decode_") is not None)
+        per_quant = per_token * AR_STEPS + (per_token > 0)
+        policy = ARPolicy(model, max_decoding_steps=AR_STEPS, stop_on_eos=False, seed=0)
+        policy.infer(ar_requests[0])
+        want = (depth, per_quant if mode == "int8" else 0, per_quant if mode == "int4" else 0)
+        reset_launch_counters()
+        lat, per = [], []
+        with flash_masks() as seen:
+            for req in ar_requests:
+                before = serving_launches()
+                out = policy.infer(req)
+                per.append(tuple(a - b for a, b in zip(serving_launches(), before)))
+                lat.append(out["policy_timing"]["infer_ms"])
+                tokens = out["tokens"]
+                if tokens.shape != (1, AR_STEPS) or not ((tokens >= 0) & (tokens < vocab)).all():
+                    raise AssertionError(f"gemma3 {mode} AR: bad tokens {tokens.shape}")
+        if any(c != want for c in per):
+            raise AssertionError(f"gemma3 {mode} AR: expected {want} (flash, int8, int4) launches, got {per}")
+        check_g3_masks(seen, ar_cases, f"AR {mode} prefill")
+        del seen
+        for key, n in zip(("flash", "int8", "int4"), serving_launches()):
+            launches[key] += n
+        prefill_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            model.ar_prefill(ar_obs, AR_STEPS)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.monotonic() - t0) * 1e3)
+        p50 = percentiles(lat)[0]
+        numbers[f"ar_{mode}"] = dict(p50_ms=p50, ms_per_token=p50 / AR_STEPS, prefill_ms=statistics.median(prefill_ms),
+                                     dequant_per_token=per_token if mode != "bf16" else 0)
+        log(f"gemma3 AR {mode}: {AR_STEPS} tokens at batch 1, (flash, int8, int4) launches per request {want} "
+            f"({per_token} dequant calls a token when quantized) over {len(ar_requests)} requests; infer "
+            f"p50_ms={p50:.3f} ms_per_token={p50 / AR_STEPS:.3f} prefill_ms={statistics.median(prefill_ms):.3f} "
+            f"all_ms={[round(x, 3) for x in lat]} tokens[0][:8]={tokens[0, :8].tolist()}")
+        # The profile of a request of AR_PROFILE_STEPS tokens (a 64-token
+        # trace of ~290,000 kernels takes the profiler about a minute), with
+        # one dequant kernel per dequant call, as phase 8 holds it.
+        short = ARPolicy(model, max_decoding_steps=AR_PROFILE_STEPS, stop_on_eos=False, seed=0)
+        short_calls = per_token * AR_PROFILE_STEPS + (per_token > 0)
+        profiled = profile_one_request(short, ar_requests[0], tokens=AR_PROFILE_STEPS,
+                                       what=f"gemma3 AR request ({mode}, {AR_PROFILE_STEPS} tokens)")
+        log(f"profile: gemma3 AR {mode}, {AR_PROFILE_STEPS} tokens: dequant kernels in the profile {profiled} for "
+            f"{short_calls} dequant calls")
+        if not PROFILE_KEPT_SHARE * short_calls <= profiled <= short_calls:
+            raise AssertionError(f"gemma3 {mode} AR: the profile holds {profiled} dequant kernels for {short_calls} "
+                                 f"dequant calls")
+    model.quantize_(None)
+    check_ar_kernels_against_plain(model, config, device, request=g3_request(400, config))
+
+    # The serving stack: a checkpoint directory from this model, restored by
+    # serve_policy.create_policy (--env LAP --config lap_gemma3_4b), and a raw
+    # request through Gemma3Tokenizer with the test vocabulary.
+    with tempfile.TemporaryDirectory(prefix="lap_g3_ckpt_") as ckpt:
+        ckpt_dir = Path(ckpt)
+        t0 = time.monotonic()
+        path = checkpoints.save_params(model, ckpt_dir / "params")
+        checkpoints.save_norm_stats(ckpt_dir / "assets" / train_config.data.asset_id / "norm_stats.json",
+                                    serving_norm_stats(config.action_dim))
+        numbers["write_s"], numbers["write_bytes"] = time.monotonic() - t0, path.stat().st_size
+        t0 = time.monotonic()
+        served = serve_policy.create_policy(serve_policy.parse_args([
+            "--env", "LAP", "--config", G3_CONFIG, "--checkpoint_dir", str(ckpt_dir), "--allow_test_vocab",
+            "--default_prompt", DEFAULT_PROMPT, "--device", str(device)]))
+        torch.cuda.synchronize()
+        numbers["restore_s"] = time.monotonic() - t0
+        raw = raw_request(900, config)
+        served.infer(raw)
+        reset_launch_counters()
+        np.random.seed(15)  # the lap data config's wrist dropout draws from numpy's global RNG
+        out = served.infer(raw)
+        raw_launches = serving_launches()
+        launches["flash"] += raw_launches[0]
+        prepared = served._prepare(raw)
+        n_tokens = int(prepared["tokenized_prompt_mask"].sum())
+        n_images = int((prepared["tokenized_prompt"] == model.IMAGE_TOKEN).sum())
+        actions = np.asarray(out["actions"])
+        obs_raw = CoTObservation.from_dict(_stack_batch([prepared]), device=device)
+        noise_raw = torch.randn((1, config.action_horizon, config.action_dim),
+                                generator=torch.Generator(device=device).manual_seed(16), device=device)
+        restored = served._model.sample_actions(obs_raw, noise=noise_raw)
+        in_memory = model.sample_actions(obs_raw, noise=noise_raw)
+        log(f"gemma3 serving stack: wrote {numbers['write_bytes']} bytes in {numbers['write_s']:.2f} s, "
+            f"create_policy restored it in {numbers['restore_s']:.2f} s; one raw request through Gemma3Tokenizer "
+            f"(test vocabulary): {n_tokens} valid prompt tokens with {n_images} placeholders, actions "
+            f"{actions.shape} in physical units, (flash, int8, int4) launches {raw_launches}, infer_ms="
+            f"{out['policy_timing']['infer_ms']:.3f}; restored vs in-memory model at the same noise: "
+            f"{'bit-equal' if torch.equal(restored, in_memory) else 'DIFFERENT'}")
+        if actions.shape != (config.action_horizon, config.action_dim) or not np.isfinite(actions).all() \
+                or raw_launches != (depth, 0, 0) or n_images != 2 * 256:
+            raise AssertionError(f"gemma3 serving stack: bad raw request ({actions.shape}, {raw_launches}, {n_images})")
+        if not torch.equal(restored, in_memory):
+            raise AssertionError("gemma3 serving stack: the restored model's actions differ from the in-memory model's")
+        del served, restored, in_memory
+    del model, policy
+    release()
+    numbers["launches"] = launches
+    return numbers
+
+
+def run_gemma3_training(device) -> dict:
+    """Phase 14, training: the lap_gemma3_4b trainer at full width with both
+    experts cut to ``G3_TRAIN_DEPTH`` layers (float32 parameters, AdamW, EMA),
+    batch TRAIN_BATCH of the synthetic batch (the image blocks in the
+    prompt), per-step launch counts, a falling loss, peak memory, one
+    profiled step."""
+    import dataclasses
+
+    import torch
+
+    from lap_tpu_torch.models import gemma3
+    from lap_tpu_torch.training import train as port_train
+    from lap_tpu_torch.training.config import get_config
+    from lap_tpu_torch.training.optimizer import CosineDecaySchedule
+
+    base = get_config(G3_CONFIG)
+    names = []
+    for variant in (base.model.paligemma_variant, base.model.action_expert_variant):
+        name = f"{variant}_depth{G3_TRAIN_DEPTH}"
+        w, h, n, k, hd, _, window = gemma3._VARIANTS[variant]
+        gemma3._VARIANTS[name] = (w, h, n, k, hd, G3_TRAIN_DEPTH, window)
+        names.append(name)
+    sched = base.lr_schedule
+    config = dataclasses.replace(
+        base,
+        model=dataclasses.replace(base.model, paligemma_variant=names[0], action_expert_variant=names[1]),
+        lr_schedule=CosineDecaySchedule(warmup_steps=G3_TRAIN_STEPS + 3, peak_lr=sched.peak_lr,
+                                        decay_steps=sched.decay_steps, decay_lr=sched.decay_lr),
+    )
+    t0 = time.monotonic()
+    trainer = port_train.build_trainer(config, device=device)
+    batch = port_train.fake_train_batch(config.model, TRAIN_BATCH, device=device, seed=config.seed)
+    trainer.run(batch, 1)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    log(f"gemma3 training: built the lap_gemma3_4b trainer at depth {G3_TRAIN_DEPTH} ({n_params} params in "
+        f"{config.param_dtype}, EMA {'on' if trainer.state.ema_params is not None else 'off'}, batch {TRAIN_BATCH}) "
+        f"and took the first step in {time.monotonic() - t0:.1f} s")
+    depth = len(trainer.model.llm.layers)
+    n_global = sum(trainer.model.llm.is_global)
+    masks = {"local": g3_training_mask(TRAIN_BATCH, device), "global": g3_training_mask(TRAIN_BATCH, device,
+                                                                                         is_global=True)}
+    # The loss at fixed flow noise and time, before and after the steps (each
+    # step draws its own, which moves the action loss from step to step).
+    gen = torch.Generator(device=device).manual_seed(19)
+    noise = torch.randn((TRAIN_BATCH, config.model.action_horizon, config.model.action_dim), generator=gen,
+                        device=device)
+    time_ = torch.rand((TRAIN_BATCH,), generator=gen, device=device) * 0.999 + 0.001
+
+    def fixed_loss() -> float:
+        with torch.no_grad():
+            return trainer.model.compute_loss(*batch, train=False, noise=noise, time=time_)[0].item()
+
+    before_loss = fixed_loss()
+    reset_launch_counters()
+    torch.cuda.reset_peak_memory_stats()
+    records, per_step = [], []
+    with flash_masks() as seen:
+        for _ in range(G3_TRAIN_STEPS):
+            before = flash_and_backward_launches()
+            records += trainer.run(batch, 1)
+            per_step.append(tuple(a - b for a, b in zip(flash_and_backward_launches(), before)))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    step_launches = dict(zip(("fwd", "dq", "dkv", "delta", "group_sum"), flash_and_backward_launches()))
+    counts = check_g3_masks(seen, masks, "training step")
+    del seen
+    expected = (2 * depth, depth, depth, depth, depth)  # remat runs each forward twice; GQA group 2
+    log(f"gemma3 training: launches per step (fwd, dq, dkv, delta, group_sum) {per_step}")
+    if any(c != expected for c in per_step) or counts["global"] != 2 * n_global * G3_TRAIN_STEPS:
+        raise AssertionError(f"gemma3 training: expected {expected} launches a step and {2 * n_global} global masks, "
+                             f"got {per_step}, {counts}")
+    losses = [r["loss"] for r in records]
+    after_loss = fixed_loss()
+    log(f"gemma3 training: the loss at fixed noise and time {before_loss:.6f} before the {G3_TRAIN_STEPS} steps, "
+        f"{after_loss:.6f} after")
+    if not all(math.isfinite(x) for x in losses) or not after_loss < before_loss:
+        raise AssertionError(f"gemma3 training: the loss did not fall or is not finite: {losses}, "
+                             f"{before_loss} -> {after_loss}")
+    step_ms = [r["step_ms"] for r in records]
+    numbers = dict(depth=depth, params=n_params, step_ms_median=statistics.median(step_ms), peak_gib=peak_gib,
+                   losses=losses, fixed_loss=(before_loss, after_loss), launches=step_launches)
+    full = sum(p.numel() for p in base.model.create_module(device="meta", init_seed=None).parameters())
+    numbers["full_depth_params"] = full
+    log(f"gemma3 training: {G3_TRAIN_STEPS} steps at batch {TRAIN_BATCH} loss={[round(x, 4) for x in losses]} "
+        f"grad_norm={[round(r['grad_norm'], 4) for r in records]} step_ms_median={numbers['step_ms_median']:.3f} "
+        f"step_ms={[round(x, 1) for x in step_ms]} samples_per_s={TRAIN_BATCH * 1000.0 / numbers['step_ms_median']:.3f} "
+        f"peak_mem_gib={peak_gib:.2f}; at full depth ({base.model.backbone_depth} layers) the model has {full} "
+        f"params: f32 parameters, gradient, Adam moments and EMA take 20 B each, {20 * full / 1e9:.1f} GB")
+    profile_one_step(trainer, batch)
+    del trainer, batch
+    release()
+    return numbers
+
+
+def check_small_gemma3_reference(device) -> None:
+    """The gemma3_dummy LAPGemma3 in f32 on the card against the same weights
+    on the CPU (the path the CPU tests hold against the JAX package):
+    ``sample_actions`` within SMALL_REF_TOL, AR tokens exactly."""
+    import numpy as np
+    import torch
+
+    from lap_tpu_torch.models.lap_gemma3 import image_prompt_head
+    from lap_tpu_torch.models.lap_model import LAPConfig
+    from lap_tpu_torch.models.types import CoTObservation
+
+    config = LAPConfig(
+        dtype="float32", paligemma_variant="gemma3_dummy", action_expert_variant="gemma3_dummy",
+        siglip_variant="dummy", action_horizon=4, max_token_len=64, image_resolution=(56, 56),
+        enable_action_training=True,
+    )
+    cpu = config.create_module(device="cpu", init_seed=0)
+    with torch.no_grad():
+        cpu.llm.embedder.input_embedding.mul_(100.0)  # no near-tied logits
+    gpu = config.create_module(device=device, init_seed=None)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(17)
+    head = image_prompt_head(config)
+    tokens = rng.integers(300, 2000, (2, 64)).astype(np.int32)
+    tokens[:, : len(head)] = head
+    valid = np.array([[60], [50]])
+    batch = {
+        "image": {k: rng.integers(0, 256, (2, 56, 56, 3), dtype=np.uint8) for k in config.image_keys},
+        "state": rng.standard_normal((2, 7)).astype(np.float32),
+        "tokenized_prompt": np.where(np.arange(64)[None] < valid, tokens, 0).astype(np.int32),
+        "tokenized_prompt_mask": np.arange(64)[None, :] < valid,
+    }
+    noise = torch.from_numpy(rng.standard_normal((2, 4, 7)).astype(np.float32))
+    ref = cpu.sample_actions(CoTObservation.from_dict(batch, device="cpu"), noise=noise)
+    got = gpu.sample_actions(CoTObservation.from_dict(batch, device=device), noise=noise)
+    err = (got.cpu() - ref).abs().max().item()
+    kw = dict(max_decoding_steps=SMALL_AR_STEPS, stop_on_eos=False)
+    ref_tokens = cpu.sample_tokens(CoTObservation.from_dict(batch, device="cpu"), **kw)
+    got_tokens = gpu.sample_tokens(CoTObservation.from_dict(batch, device=device), **kw).cpu()
+    log(f"small reference: dummy LAPGemma3 f32 card vs CPU actions max_abs_err={err:.3e} (tol {SMALL_REF_TOL}), "
+        f"AR tokens equal={torch.equal(got_tokens, ref_tokens)}: {got_tokens.tolist()}")
+    if not (err <= SMALL_REF_TOL and torch.equal(got_tokens, ref_tokens)):
+        raise AssertionError("card and CPU disagree on the dummy LAPGemma3")
+
+
 def main() -> int:
 
     if not (REPO / "lap_tpu_torch" / "csrc").is_dir():
@@ -2352,6 +2978,13 @@ def main() -> int:
     release()
     entry = run_train_entry_points(device)
     bwd_timing = time_flash_backward(device, TRAIN_BATCH)
+    check_small_gemma3_reference(device)
+    g3 = run_gemma3_serving(device)
+    g3_train = run_gemma3_training(device)
+    g3_fwd_timing = time_gemma3_flash_forward(device)
+    g3_bwd_timing = time_flash_backward(device, TRAIN_BATCH, gemma3=True)
+    print(json.dumps({"gemma3": {**g3, "training": g3_train}}), flush=True)
+    g3_flash, g3_int8, g3_int4 = (g3["launches"][k] for k in ("flash", "int8", "int4"))
 
     csrc = "lap_tpu_torch/csrc/"
     kernels = [
@@ -2359,37 +2992,52 @@ def main() -> int:
             name="flash_attention_fwd", route="cuda", source=csrc + fa.SOURCE,
             replaces="lap_tpu/ops/flash_attention.py:53",
             launches=flow_launches + sum(c[0] for c in quant_flow.values()) + sum(c[0] for c in ar.values())
-            + stack["flash"] + train_launches["fwd"] + entry["fwd"],
+            + stack["flash"] + train_launches["fwd"] + entry["fwd"] + g3_flash + g3_train["launches"]["fwd"],
+            launches_gemma3_serving=g3_flash, launches_gemma3_training=g3_train["launches"]["fwd"],
             launches_flow=flow_launches, launches_quant_flow=sum(c[0] for c in quant_flow.values()),
             launches_ar=sum(c[0] for c in ar.values()), launches_serving_stack=stack["flash"],
             launches_training=train_launches["fwd"], launches_train_entry_points=entry["fwd"],
             max_abs_err=max(max_err, bwd_err["fwd"]), **timing,
             timed_at=f"B=1 T=S={LAP_PREFIX} (serving prefill)",
             training_shape={k: v for k, v in bwd_timing["fwd"].items() if k != "batch"},
+            gemma3_prefill=g3_fwd_timing,
+            gemma3_training_shape={k: v for k, v in g3_bwd_timing["fwd"].items() if k != "batch"},
             occupancy=fwd_occupancy,
         ),
         dict(
             name="flash_attention_bwd_dq", route="cuda", source=csrc + fa.BWD_SOURCE,
-            replaces="lap_tpu/ops/flash_attention.py:173", launches=train_launches["dq"] + entry["dq"],
+            replaces="lap_tpu/ops/flash_attention.py:173",
+            launches=train_launches["dq"] + entry["dq"] + g3_train["launches"]["dq"],
             launches_training=train_launches["dq"], launches_train_entry_points=entry["dq"],
+            launches_gemma3_training=g3_train["launches"]["dq"],
+            gemma3_training_shape={k: v for k, v in g3_bwd_timing["dq"].items() if k != "batch"},
             max_abs_err=bwd_err["dq"], **bwd_timing["dq"],
         ),
         dict(
             name="flash_attention_bwd_dkv", route="cuda", source=csrc + fa.BWD_SOURCE,
-            replaces="lap_tpu/ops/flash_attention.py:215", launches=train_launches["dkv"] + entry["dkv"],
+            replaces="lap_tpu/ops/flash_attention.py:215",
+            launches=train_launches["dkv"] + entry["dkv"] + g3_train["launches"]["dkv"],
             launches_training=train_launches["dkv"], launches_train_entry_points=entry["dkv"],
+            launches_gemma3_training=g3_train["launches"]["dkv"],
+            gemma3_training_shape={k: v for k, v in g3_bwd_timing["dkv"].items() if k != "batch"},
             max_abs_err=bwd_err["dkv"], **bwd_timing["dkv"],
         ),
         dict(
             name="flash_attention_bwd_delta", route="cuda", source=csrc + fa.BWD_SOURCE,
-            replaces="lap_tpu/ops/flash_attention.py:270", launches=train_launches["delta"] + entry["delta"],
+            replaces="lap_tpu/ops/flash_attention.py:270",
+            launches=train_launches["delta"] + entry["delta"] + g3_train["launches"]["delta"],
             launches_training=train_launches["delta"], launches_train_entry_points=entry["delta"],
+            launches_gemma3_training=g3_train["launches"]["delta"],
+            gemma3_training_shape={k: v for k, v in g3_bwd_timing["delta"].items() if k != "batch"},
             max_abs_err=bwd_err["delta"], **bwd_timing["delta"],
         ),
         dict(
             name="flash_attention_bwd_group_sum", route="cuda", source=csrc + fa.BWD_SOURCE,
-            replaces="lap_tpu/ops/flash_attention.py:340", launches=train_launches["group_sum"] + entry["group_sum"],
+            replaces="lap_tpu/ops/flash_attention.py:340",
+            launches=train_launches["group_sum"] + entry["group_sum"] + g3_train["launches"]["group_sum"],
             launches_training=train_launches["group_sum"], launches_train_entry_points=entry["group_sum"],
+            launches_gemma3_training=g3_train["launches"]["group_sum"],
+            gemma3_training_shape={k: v for k, v in g3_bwd_timing["group_sum"].items() if k != "batch"},
             max_abs_err=bwd_err["group_sum"], **bwd_timing["group_sum"],
         ),
     ]
@@ -2402,7 +3050,9 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=csrc + (i8.SOURCE, i4.SOURCE)[index], replaces=replaces,
             launches=quant_flow[name[:4]][1 + index] + ar[name[:4]][1 + index] + stack.get(name[:4], 0)
-            + entry.get(name[:4], 0),
+            + entry.get(name[:4], 0) + (g3_int8, g3_int4)[index],
+            launches_gemma3=(g3_int8, g3_int4)[index],
+            gemma3={f"{shape}_M{m}": t for (shape, m), t in quant_timing[name].items() if shape.startswith("g3_")},
             launches_train_entry_points=entry.get(name[:4], 0),
             launches_quant_flow=quant_flow[name[:4]][1 + index], launches_ar=ar[name[:4]][1 + index],
             launches_serving_stack=stack.get(name[:4], 0),

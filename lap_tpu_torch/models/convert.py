@@ -12,7 +12,12 @@ numpy arrays. Its traps, each handled here:
 - SigLIP's ``DenseGeneral`` kernels are [D, N, H] (query/key/value) and
   [N, H, D] (out);
 - the ``nn.Conv`` patchify kernel is HWIO, torch's OIHW;
-- the adaRMS modulation lives under ``<norm>_1/Dense_0``.
+- the adaRMS modulation lives under ``<norm>_1/Dense_0``;
+- Gemma3 (``LAPGemma3``) adds ``attn/q_rmsnorm`` and ``attn/k_rmsnorm``
+  (shared by the experts), ``post_attention_norm`` and ``post_ffw_norm``
+  (expert 0 only), ``img/mm_soft_embedding_norm`` and a bias-free
+  ``img/head``; its gating ``[2, hidden, width]`` keeps the JAX layout, as
+  the Gemma ``[2, width, hidden]`` does.
 
 ``from_jax_params`` fails on any leaf it does not consume;
 ``load_jax_params`` also fails on any port parameter it does not fill.
@@ -53,6 +58,8 @@ _EXPERT = re.compile(r"^(?P<name>[a-z_]+?)(?:_(?P<expert>\d+))?$")
 _UNSCANNED_LAYER = re.compile(r"^layers_(\d+)$")
 _QUANT_LEAF = re.compile(r"^(?P<prefix>(gating_|linear_|decode_)?)(?P<leaf>w_i8|w_i4|scale)$")
 _GEMMA_EINSUMS = ("q_einsum", "kv_einsum", "qkv_einsum", "attn_vec_einsum")
+_QK_NORMS = ("q_rmsnorm", "k_rmsnorm")  # Gemma3, one for all experts
+_POST_NORMS = ("post_attention_norm", "post_ffw_norm")  # Gemma3, expert 0 only
 
 
 def flatten(tree: dict, parent: str = "") -> dict:
@@ -95,10 +102,14 @@ def _norm(prefix: str, rest: list[str], value: np.ndarray) -> tuple[str, np.ndar
 def _llm_layer(parts: list[str], value: np.ndarray, i: int) -> tuple[str, np.ndarray]:
     """One layer's slice of a leaf under llm/layers/."""
     if parts[0] == "attn":
+        if parts[1] in _QK_NORMS and parts[2:] == ["scale"]:
+            return f"llm.layers.{i}.attn.{parts[1]}.scale", value
         name, expert = _split_expert(parts[1])
         if name not in _GEMMA_EINSUMS or parts[2:] != ["w"]:
             raise KeyError("/".join(parts))
         return f"llm.layers.{i}.attn.{name}.{expert}.w", value
+    if parts[0] in _POST_NORMS and parts[1:] == ["scale"]:
+        return f"llm.layers.{i}.{parts[0]}.scale", value
     name, expert = _split_expert(parts[0])
     if name in ("pre_attention_norm", "pre_ffw_norm"):
         return _norm(f"llm.layers.{i}.{name}.{expert}", parts[1:], value)
@@ -153,6 +164,8 @@ def _translate(key: str, value: np.ndarray) -> list[tuple[str, np.ndarray]]:
             return [("img.embedding.bias", value)]
         if sub == "pos_embedding":
             return [("img.pos_embedding", value)]
+        if sub == "mm_soft_embedding_norm" and parts[2:] == ["scale"]:
+            return [("img.soft_embedding_norm.scale", value)]
         if sub == "Transformer_encoderblock":
             return [_siglip_layer(parts[2:], value[i], i) for i in range(value.shape[0])]
         if sub == "Transformer_encoder_norm":
@@ -339,6 +352,10 @@ def _jax_leaf(name: str, heads: int):
             i, rest = int(parts[2]), parts[3:]
             if rest[0] == "attn" and len(rest) == 4 and rest[3] == "w":
                 return f"llm/layers/attn/{rest[1]}{_suffix(rest[2])}/w", i, _keep
+            if rest[0] == "attn" and rest[1] in _QK_NORMS and rest[2:] == ["scale"]:
+                return f"llm/layers/attn/{rest[1]}/scale", i, _keep
+            if rest[0] in _POST_NORMS and rest[1:] == ["scale"]:
+                return f"llm/layers/{rest[0]}/scale", i, _keep
             if rest[0] in ("pre_attention_norm", "pre_ffw_norm") and len(rest) == 3:
                 leaf = _NORM_LEAVES[rest[2]]
                 return f"llm/layers/{rest[0]}{_suffix(rest[1])}/{leaf}", i, _transpose if "kernel" in leaf else _keep
@@ -351,6 +368,8 @@ def _jax_leaf(name: str, heads: int):
             return "img/embedding/bias", None, _keep
         if parts[1:] == ["pos_embedding"]:
             return "img/pos_embedding", None, _keep
+        if parts[1:] == ["soft_embedding_norm", "scale"]:
+            return "img/mm_soft_embedding_norm/scale", None, _keep
         if parts[1] == "encoder_norm":
             return "img/Transformer_encoder_norm/" + {"weight": "scale", "bias": "bias"}[parts[2]], None, _keep
         if parts[1] == "head":

@@ -211,6 +211,17 @@ class Attention(nn.Module):
         (``kv_cache`` given, expert 0 absent), and single-token AR decode
         (``kv_cache`` given, expert 0 present: the cache is written in
         place)."""
+        q, k, v = self._project(xs)
+        q = apply_rope(q, positions)
+        q = q * self.configs[0].head_dim ** -0.5
+        k = apply_rope(k, positions)
+        idx, k, v = self._cache(xs, k, v, attn_mask, kv_cache, want_cache)
+        encoded = self._attend(xs, q, k, v, attn_mask, kv_cache)
+        return self._project_out(xs, encoded), ((idx, k, v) if want_cache else None)
+
+    def _project(self, xs):
+        """q [B, T, N, H], k and v [B, T, K, H] of the live experts' tokens,
+        concatenated."""
         qs, ks, vs = [], [], []
         for i, x in enumerate(xs):
             if x is None:
@@ -223,14 +234,13 @@ class Attention(nn.Module):
             qs.append(q)
             ks.append(k)
             vs.append(v)
-        q = torch.cat(qs, dim=1)
-        k = torch.cat(ks, dim=1)
-        v = torch.cat(vs, dim=1)
+        return torch.cat(qs, dim=1), torch.cat(ks, dim=1), torch.cat(vs, dim=1)
 
-        q = apply_rope(q, positions)
-        q = q * self.configs[0].head_dim ** -0.5
-        k = apply_rope(k, positions)
-
+    def _cache(self, xs, k, v, attn_mask, kv_cache, want_cache):
+        """(idx, k, v) of the keys attention reads: the cache written in
+        place (AR decode), the cached prefix then the fresh keys (suffix
+        step), a new cache padded to the mask's length, or the fresh keys
+        (training: idx None)."""
         if kv_cache is not None and xs[0] is not None:
             idx, k, v = update_cache(k, v, *kv_cache)
         elif kv_cache is not None:
@@ -248,7 +258,9 @@ class Attention(nn.Module):
                 raise ValueError("without a cache the mask must cover exactly the fresh keys")
             idx = None
             k, v = k.to(self.cache_dtype or k.dtype), v.to(self.cache_dtype or v.dtype)
+        return idx, k, v
 
+    def _attend(self, xs, q, k, v, attn_mask, kv_cache):
         joint = xs[0] is not None and any(x is not None for x in xs[1:])
         if self.stop_action_to_vlm_grad and kv_cache is None and joint:
             # The joint training pass: queries of experts != 0 must not
@@ -265,7 +277,10 @@ class Attention(nn.Module):
             encoded = torch.cat([out0, out1], dim=1)
         else:
             encoded = attention(q, k, v, attn_mask, scale=1.0, impl=self.attn_impl)
+        return encoded
 
+    def _project_out(self, xs, encoded):
+        """Each live expert's rows of ``encoded`` through its attn_vec_einsum."""
         out, start = [], 0
         for i, x in enumerate(xs):
             if x is None:
@@ -274,7 +289,7 @@ class Attention(nn.Module):
             end = start + x.shape[1]
             out.append(self.attn_vec_einsum[i](encoded[:, start:end]))
             start = end
-        return out, ((idx, k, v) if want_cache else None)
+        return out
 
 
 def _gated_residual(x, y, gate):
@@ -322,6 +337,8 @@ class Block(nn.Module):
 class Module(nn.Module):
     """The multi-expert transformer: ``depth`` blocks, then per-expert final norms."""
 
+    BLOCK = Block
+
     def __init__(self, configs: Sequence[Config], *, use_adarms: Sequence[bool] | None = None,
                  embed_dtype: torch.dtype = torch.bfloat16, cache_dtype=None, attn_impl: str = "auto",
                  stop_action_to_vlm_grad: bool = False, remat_policy: str = "nothing_saveable",
@@ -339,8 +356,8 @@ class Module(nn.Module):
         self.embedder = Embedder(vocab_size, configs[0].width, **kw)
         self.layers = nn.ModuleList(
             [
-                Block(configs, use_adarms, stop_action_to_vlm_grad=stop_action_to_vlm_grad,
-                      cache_dtype=cache_dtype, attn_impl=attn_impl, **kw)
+                self.BLOCK(configs, use_adarms, stop_action_to_vlm_grad=stop_action_to_vlm_grad,
+                           cache_dtype=cache_dtype, attn_impl=attn_impl, **kw)
                 for _ in range(configs[0].depth)
             ]
         )
@@ -365,8 +382,14 @@ class Module(nn.Module):
     def decode_logits(self, prelogits: torch.Tensor) -> torch.Tensor:
         return self.embedder.decode(prelogits)
 
+    def _block_kwargs(self, layer: int, **kwargs) -> dict:
+        """Keyword arguments of layer ``layer``'s block beyond the shared ones."""
+        if kwargs:
+            raise TypeError(f"unexpected arguments {sorted(kwargs)}")
+        return {}
+
     def forward(self, embedded, positions, mask, adarms_cond=None, *, kv_cache=None,
-                want_cache: bool = True):
+                want_cache: bool = True, **block_kwargs):
         """Run the stack.
 
         Args:
@@ -378,6 +401,7 @@ class Module(nn.Module):
                 A single-token AR step (expert 0 present) writes k and v
                 in place.
             want_cache: False in training: no cache is built or stacked.
+            block_kwargs: passed to ``_block_kwargs`` (Gemma3's image mask).
 
         Returns:
             (per-expert final-normed outputs, stacked kv_cache or None)
@@ -391,11 +415,13 @@ class Module(nn.Module):
         for i, block in enumerate(self.layers):
             layer_in = None if kv_cache is None else tuple(c[i] for c in kv_cache)
             args = (embedded, layer_in, positions, mask, adarms_cond, want_cache)
+            kwargs = self._block_kwargs(i, **block_kwargs)
             if remat:
                 # No dropout, so there is no RNG state to replay.
-                embedded, layer_out = checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
+                embedded, layer_out = checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False,
+                                                 **kwargs)
             else:
-                embedded, layer_out = block(*args)
+                embedded, layer_out = block(*args, **kwargs)
             caches.append(layer_out)
         if not want_cache:
             kv_cache = None

@@ -121,6 +121,24 @@ class LAPConfig:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    @property
+    def backbone_depth(self) -> int:
+        """Layer count of the VLM backbone."""
+        if "gemma3" in self.paligemma_variant:
+            from lap_tpu_torch.models import gemma3 as _gemma3
+
+            return _gemma3.get_config(self.paligemma_variant).num_layers
+        return _gemma.get_config(self.paligemma_variant).depth
+
+    def create_module(self, **kwargs) -> "LAP":
+        """The model class of this config (``LAPGemma3`` for a gemma3 VLM),
+        built with ``kwargs`` (``device``, ``init_seed``, ``param_dtype``)."""
+        if "gemma3" in self.paligemma_variant:
+            from lap_tpu_torch.models.lap_gemma3 import LAPGemma3
+
+            return LAPGemma3(self, **kwargs)
+        return LAP(self, **kwargs)
+
     def fake_obs(self, batch_size: int = 1, device=None) -> CoTObservation:
         return fake_obs(
             batch_size=batch_size,
@@ -217,38 +235,43 @@ class LAP(nn.Module):
             raise NotImplementedError("only the pi0.5 (adaRMS) branch is ported")
         device = resolve_device(device)
         self.config = config
-        dtype = config.torch_dtype
-        pali = _gemma.get_config(config.paligemma_variant)
-        action = _gemma.get_config(config.action_expert_variant)
-        self._action_width = action.width
         with torch.device("meta"):
-            kw = dict(dtype=param_dtype or dtype)
-            self.img = _siglip.SigLIP(
-                _siglip.get_config(config.siglip_variant, head_dim_out=pali.width),
-                image_size=config.image_resolution,
-                attn_impl=config.attn_impl,
-                compute_dtype=dtype,
-                **kw,
-            )
-            self.llm = _gemma.Module(
-                [pali, action],
-                use_adarms=[False, True],
-                embed_dtype=dtype,
-                cache_dtype=dtype,
-                attn_impl=config.attn_impl,
-                stop_action_to_vlm_grad=config.stop_action_to_vlm_grad,
-                remat_policy=config.remat_policy,
-                **kw,
-            )
-            self.action_in_proj = nn.Linear(config.action_dim, action.width, **kw)
-            self.time_mlp_in = nn.Linear(action.width, action.width, **kw)
-            self.time_mlp_out = nn.Linear(action.width, action.width, **kw)
-            self.action_out_proj = nn.Linear(action.width, config.action_dim, **kw)
+            kw = dict(dtype=param_dtype or config.torch_dtype)
+            self._action_width = action_width = self._build(config, kw)
+            self.action_in_proj = nn.Linear(config.action_dim, action_width, **kw)
+            self.time_mlp_in = nn.Linear(action_width, action_width, **kw)
+            self.time_mlp_out = nn.Linear(action_width, action_width, **kw)
+            self.action_out_proj = nn.Linear(action_width, config.action_dim, **kw)
         self.to_empty(device=device)
         if init_seed is not None:
             random_init_(self, init_seed)
             if config.quant is not None:
                 self.quantize_(config.quant)
+
+    def _build(self, config: LAPConfig, kw: dict) -> int:
+        """Build ``img`` and ``llm`` (on the meta device); returns the action
+        expert's width."""
+        dtype = config.torch_dtype
+        pali = _gemma.get_config(config.paligemma_variant)
+        action = _gemma.get_config(config.action_expert_variant)
+        self.img = _siglip.SigLIP(
+            _siglip.get_config(config.siglip_variant, head_dim_out=pali.width),
+            image_size=config.image_resolution,
+            attn_impl=config.attn_impl,
+            compute_dtype=dtype,
+            **kw,
+        )
+        self.llm = _gemma.Module(
+            [pali, action],
+            use_adarms=[False, True],
+            embed_dtype=dtype,
+            cache_dtype=dtype,
+            attn_impl=config.attn_impl,
+            stop_action_to_vlm_grad=config.stop_action_to_vlm_grad,
+            remat_policy=config.remat_policy,
+            **kw,
+        )
+        return action.width
 
     @property
     def device(self) -> torch.device:
@@ -287,6 +310,23 @@ class LAP(nn.Module):
         else:
             ar_mask.append(torch.zeros(obs.tokenized_prompt.shape, dtype=torch.bool, device=stacked.device))
         return torch.cat(tokens, dim=1), torch.cat(input_mask, dim=1), torch.cat(ar_mask, dim=1)
+
+    def _prefix_inputs(self, obs: CoTObservation):
+        """(tokens, input mask, ar mask, extra keyword arguments of the
+        backbone's prefix call) of the prefix."""
+        return (*self.embed_prefix(obs), {})
+
+    def _embed_prefix_for_loss(self, obs: CoTObservation, suffix: dict):
+        """``_prefix_inputs`` for ``compute_loss``, whose backbone call also
+        holds the ``suffix`` tokens (JAX's hook of the same name)."""
+        del suffix
+        return self._prefix_inputs(obs)
+
+    @staticmethod
+    def _right_align(tokens, input_mask, attn_mask, extra: dict):
+        """The AR prefill's right alignment of the prefix and its extra
+        backbone arguments."""
+        return (*left_to_right_align(tokens, input_mask, attn_mask), extra)
 
     def embed_suffix(self, obs: CoTObservation, noisy_actions: torch.Tensor, timestep: torch.Tensor):
         """Action-expert tokens and the adaRMS time conditioning (pi0.5)."""
@@ -404,7 +444,11 @@ class LAP(nn.Module):
             loss_mask = loss_mask & ex_mask
 
         token_logp, predictions = self._token_logp_and_pred(pre_logits, labels, need_pred=verbose_mode)
-        per_sample = -(token_logp * loss_mask).sum(dim=-1) / loss_mask.sum(dim=-1).clamp(min=1)
+        # JAX multiplies by a boolean mask as a select: a masked position
+        # gives 0 even where its log-prob is NaN (LAPGemma3's labels past
+        # the vocabulary).
+        masked_logp = torch.where(loss_mask, token_logp, 0.0)
+        per_sample = -masked_logp.sum(dim=-1) / loss_mask.sum(dim=-1).clamp(min=1)
         metrics = {"lang_loss": per_sample.mean()}
 
         if verbose_mode:
@@ -418,7 +462,7 @@ class LAP(nn.Module):
                 _metrics.compute_token_accuracy_metrics(
                     predictions=predictions,
                     labels=labels,
-                    per_token_loss=-token_logp * loss_mask,
+                    per_token_loss=-masked_logp,
                     token_mask=loss_mask,
                     critical_mask=prep(obs.critical_token_mask),
                     number_mask=prep(obs.number_token_mask),
@@ -470,7 +514,7 @@ class LAP(nn.Module):
         augmented_images = observation.images if return_augmented_images else None
 
         suffix = self.prepare_suffix(observation, actions, noise=noise, time=time, generator=generator)
-        prefix_tokens, prefix_mask, prefix_ar_mask = self.embed_prefix(observation)
+        prefix_tokens, prefix_mask, prefix_ar_mask, backbone_kwargs = self._embed_prefix_for_loss(observation, suffix)
         prefix_mask_action = self._build_prefix_action_mask(prefix_mask, observation)
         combined_mask = self._build_combined_attention_mask(
             prefix_mask, prefix_ar_mask, prefix_mask_action,
@@ -484,6 +528,7 @@ class LAP(nn.Module):
             combined_mask,
             [None, suffix["adarms_cond"]],
             want_cache=False,
+            **backbone_kwargs,
         )
 
         def zeros():
@@ -598,10 +643,10 @@ class LAP(nn.Module):
             )
         noise = noise.to(device=device, dtype=torch.float32)
 
-        prefix_tokens, prefix_mask, prefix_ar_mask = self.embed_prefix(observation)
+        prefix_tokens, prefix_mask, prefix_ar_mask, extra = self._prefix_inputs(observation)
         prefix_attn_mask = make_attn_mask(prefix_mask, prefix_ar_mask)
         positions = torch.cumsum(prefix_mask, dim=1) - 1
-        _, kv_cache = self.llm([prefix_tokens, None], positions, prefix_attn_mask, [None, None])
+        _, kv_cache = self.llm([prefix_tokens, None], positions, prefix_attn_mask, [None, None], **extra)
 
         prefix_len = prefix_mask.sum(dim=-1)
         x_t, time = noise, np.float32(1.0)
@@ -632,16 +677,16 @@ class LAP(nn.Module):
         observation = preprocess_observation(
             observation, image_keys=list(observation.images.keys()), image_resolution=cfg.image_resolution
         )
-        prefix_tokens, prefix_mask, prefix_ar_mask = self.embed_prefix(observation)
+        prefix_tokens, prefix_mask, prefix_ar_mask, extra = self._prefix_inputs(observation)
         prefix_attn_mask = make_attn_mask(prefix_mask, prefix_ar_mask)
-        prefix_tokens, prefix_mask, prefix_attn_mask = left_to_right_align(
-            prefix_tokens, prefix_mask, prefix_attn_mask
+        prefix_tokens, prefix_mask, prefix_attn_mask, extra = self._right_align(
+            prefix_tokens, prefix_mask, prefix_attn_mask, extra
         )
         prefill_size = prefix_tokens.shape[1]
         prefill_len = prefix_mask.sum(dim=-1)
         prefix_attn_mask = F.pad(prefix_attn_mask, (0, max_decoding_steps))
         positions = torch.cumsum(prefix_mask, dim=-1) - 1
-        (pre_logits, _), kv_cache = self.llm([prefix_tokens, None], positions, prefix_attn_mask, [None, None])
+        (pre_logits, _), kv_cache = self.llm([prefix_tokens, None], positions, prefix_attn_mask, [None, None], **extra)
         return ARState(
             kv_cache=kv_cache,
             logits=self.llm.decode_logits(pre_logits[:, -1:]),

@@ -2,7 +2,12 @@
 
 Conv patchify, learned position embeddings, pre-LN encoder blocks with
 bidirectional attention, the encoder LayerNorm, and the ``head`` Dense to the
-LLM width. Flax ``LayerNorm`` uses eps 1e-6 (PyTorch's default is 1e-5) and
+LLM width. The Gemma3 extensions (``lap_tpu/models/siglip.py:28-44,136-211``):
+an RMS soft-embedding norm after the position embeddings (a zero-init
+``1 + scale``; x times an f32 rsqrt, so the product is f32 until the cast
+back), average pooling of the token grid to ``pool_to_tokens`` (a no-op when
+the grid already has that many, as at 224² with patch 14), and a bias-free
+``head``. Flax ``LayerNorm`` uses eps 1e-6 (PyTorch's default is 1e-5) and
 flax ``gelu`` the tanh approximation. Images come in as [B, H, W, 3] in
 [-1, 1], as in JAX.
 
@@ -45,8 +50,10 @@ class SiglipConfig:
     mlp_dim: int
     num_heads: int
     patch_size: int = 14
+    pool_to_tokens: int | None = None  # average-pool the grid to this many tokens
     head_dim_out: int | None = None  # project to the LLM width
-    head_bias: bool = True
+    head_bias: bool = True  # big_vision's head has a bias; Gemma3's has none
+    soft_embedding_norm: bool = False
 
 
 _VARIANTS = {
@@ -102,8 +109,23 @@ class EncoderBlock(nn.Module):
         return x + y
 
 
+class SoftEmbeddingNorm(nn.Module):
+    """Gemma3's ``mm_soft_embedding_norm``: RMSNorm with a ``1 + scale`` weight."""
+
+    def __init__(self, width: int, *, device=None, dtype=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(width, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        var = x.float().square().mean(dim=-1, keepdim=True)
+        return (x * torch.rsqrt(var + 1e-6) * (1 + self.scale)).to(x.dtype)
+
+    def random_init_(self, gen: torch.Generator) -> None:
+        self.scale.normal_(0.0, 0.1, generator=gen)
+
+
 class SigLIP(nn.Module):
-    """ViT image encoder emitting a token sequence (no pooling)."""
+    """ViT image encoder emitting a token sequence."""
 
     def __init__(self, config: SiglipConfig, *, image_size: tuple[int, int] = (224, 224),
                  attn_impl="auto", compute_dtype: torch.dtype | None = None, remat: bool = True,
@@ -117,6 +139,7 @@ class SigLIP(nn.Module):
         n_patches = (image_size[0] // p) * (image_size[1] // p)
         self.embedding = nn.Conv2d(3, config.width, p, stride=p, **kw)
         self.pos_embedding = nn.Parameter(torch.empty((1, n_patches, config.width), **kw))
+        self.soft_embedding_norm = SoftEmbeddingNorm(config.width, **kw) if config.soft_embedding_norm else None
         self.blocks = nn.ModuleList(
             [
                 EncoderBlock(config.width, config.mlp_dim, config.num_heads, attn_impl=attn_impl, **kw)
@@ -140,6 +163,8 @@ class SigLIP(nn.Module):
         x = F.conv2d(x, conv.weight.to(dtype), conv.bias.to(dtype), stride=conv.stride)  # [B, D, gh, gw]
         x = x.flatten(2).transpose(1, 2)  # [B, gh*gw, D], row-major over the grid
         x = x + self.pos_embedding.to(x.dtype)
+        if self.soft_embedding_norm is not None:
+            x = self.soft_embedding_norm(x)
         remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
             if remat:
@@ -147,6 +172,13 @@ class SigLIP(nn.Module):
             else:
                 x = block(x)
         x = _layer_norm(self.encoder_norm, x)
+        if self.config.pool_to_tokens:
+            b, tokens, d = x.shape
+            side = round(tokens**0.5)
+            out_side = round(self.config.pool_to_tokens**0.5)
+            factor = side // out_side
+            x = x.reshape(b, out_side, factor, out_side, factor, d).mean(dim=(2, 4))
+            x = x.reshape(b, out_side * out_side, d)
         if self.head is not None:
             x = _linear(self.head, x)
         return x

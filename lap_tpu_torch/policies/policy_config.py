@@ -96,7 +96,6 @@ def _require_real_tokenizer(stacks, *, allow_test_vocab: bool):
 
 
 def _restore(train_config, checkpoint_dir: Path, *, quantize: str | None = None, tp: int = 1, device=None):
-    from lap_tpu_torch.models.lap_model import LAP
     from lap_tpu_torch.training.checkpoints import restore_params
 
     if tp > 1 and quantize is not None:
@@ -108,7 +107,7 @@ def _restore(train_config, checkpoint_dir: Path, *, quantize: str | None = None,
         raise NotImplementedError("tensor-parallel serving (tp > 1) is not ported yet (ROADMAP queue A, item 13)")
     # Inference disables the training-only stop-gradient.
     model_cfg = dataclasses.replace(train_config.model, stop_action_to_vlm_grad=False)
-    model = LAP(model_cfg, device=device, init_seed=None)
+    model = model_cfg.create_module(device=device, init_seed=None)
     restore_params(checkpoint_dir / "params", model)
     if quantize is not None:
         model.quantize_(quantize)

@@ -63,10 +63,9 @@ def _create_model_policy(args, device):
                 "preset without --checkpoint_dir never restores. Fabricate a "
                 "checkpoint and pass --checkpoint_dir to exercise them."
             )
-        from lap_tpu_torch.models.lap_model import LAP
         from lap_tpu_torch.policies.policy import Policy
 
-        model = LAP(train_config.model, device=device, init_seed=0)
+        model = train_config.model.create_module(device=device, init_seed=0)
         inputs, outputs = policy_config._build_transform_stacks(
             train_config, None, default_prompt=args.default_prompt, ar=False
         )

@@ -7,10 +7,13 @@ offline eval read (``:216-286``): run names and directories, checkpoint
 interval and retention, resume / overwrite, validation and ``eval_*``.
 ``cli()`` resolves ``<config> [--field value ...]`` as JAX's does.
 
-Left out: the RLDS pipeline's data fields (ROADMAP item 19), meshes and
-parallelism (item 13), wandb (item 21), and the named configs and
-``LAPConfig`` fields of the FAST, pi0, vla0 and Gemma3 models (item 12b).
-Defaults equal JAX's; a test compares them field by field.
+Named configs: ``lap``, ``lap_libero``, the Gemma3 family (``lap_gemma3_4b``,
+``lap_gemma3_12b``, ``lap_gemma3_27b``, ``lap_gemma3_4b_libero``) and
+``debug``. Left out: the RLDS pipeline's data fields (ROADMAP item 19), meshes
+and parallelism (item 13), wandb (item 21), and the named configs and
+``LAPConfig`` fields of the FAST (``pi05_replicated``, ``fast_gemma3_4b``),
+pi0 and vla0 models (items 12b and 20). Defaults equal JAX's; a test compares
+them field by field.
 """
 
 from __future__ import annotations
@@ -255,6 +258,26 @@ class TrainConfig:
         return self.ema_decay is not None and self.ema_schedule_choice.kind != "disabled"
 
 
+_FINETUNE_LR = _optimizer.CosineDecaySchedule(warmup_steps=1000, peak_lr=5e-5, decay_steps=40_000, decay_lr=5e-5)
+
+
+def _libero_data(**kw) -> DataConfig:
+    return DataConfig(repo_id="libero", asset_id="libero", data_mix="libero_finetune", val_fraction=0.0, **kw)
+
+
+def _gemma3_model(vlm: str, expert: str, **kw) -> LAPConfig:
+    return LAPConfig(
+        action_dim=7,
+        action_horizon=kw.pop("action_horizon", 16),
+        enable_action_training=True,
+        enable_langact_training=True,
+        max_token_len=800,
+        paligemma_variant=vlm,
+        action_expert_variant=expert,
+        **kw,
+    )
+
+
 _CONFIGS = [
     TrainConfig(
         name="lap",
@@ -279,14 +302,47 @@ _CONFIGS = [
             language_loss_weight=0.4,
             enable_image_augmentation=False,
         ),
-        data=DataConfig(repo_id="libero", asset_id="libero", data_mix="libero_finetune", val_fraction=0.0),
-        lr_schedule=_optimizer.CosineDecaySchedule(warmup_steps=1000, peak_lr=5e-5, decay_steps=40_000, decay_lr=5e-5),
+        data=_libero_data(),
+        lr_schedule=_FINETUNE_LR,
         weight_loader=weight_loaders.WeightLoaderChoice(kind="checkpoint", params_path="checkpoints/lap/params"),
         save_interval=2000,
         keep_period=2000,
         num_train_steps=40_001,
         batch_size=256,
         ema_schedule_choice=_optimizer.EmaScheduleChoice(kind="constant"),
+    ),
+    # The Gemma3 family (LAPGemma3). The 4B config names no params_path: its
+    # gemma3 weight loader raises until one is given (--weight_loader.params_path).
+    TrainConfig(
+        name="lap_gemma3_4b",
+        model=_gemma3_model("gemma3_4b", "gemma3_300m"),
+        batch_size=2048,
+        weight_loader=weight_loaders.WeightLoaderChoice(kind="gemma3"),
+    ),
+    TrainConfig(
+        name="lap_gemma3_12b",
+        model=_gemma3_model("gemma3_12b", "gemma3_300m_48"),
+        weight_loader=weight_loaders.WeightLoaderChoice(kind="gemma3", params_path="checkpoints/gemma3-12b-it"),
+        batch_size=2048,
+    ),
+    TrainConfig(
+        name="lap_gemma3_27b",
+        model=_gemma3_model("gemma3_27b", "gemma3_300m_62"),
+        weight_loader=weight_loaders.WeightLoaderChoice(kind="gemma3", params_path="checkpoints/gemma3-27b-it"),
+        batch_size=2048,
+    ),
+    TrainConfig(
+        name="lap_gemma3_4b_libero",
+        model=_gemma3_model("gemma3_4b", "gemma3_300m", action_horizon=10, language_loss_weight=0.4,
+                            enable_image_augmentation=False),
+        batch_size=2048,
+        weight_loader=weight_loaders.WeightLoaderChoice(kind="gemma3", params_path="checkpoints/gemma3-4b-it"),
+        data=_libero_data(),
+        lr_schedule=_FINETUNE_LR,
+        save_interval=2000,
+        keep_period=2000,
+        num_train_steps=40_001,
+        ema_schedule_choice=_optimizer.EmaScheduleChoice(kind="cosine_delayed", start_step=1000),
     ),
     # Debug config: tiny model + synthetic data, runs anywhere.
     TrainConfig(
@@ -321,6 +377,8 @@ _CONFIGS_DICT = {c.name: c for c in _CONFIGS}
 def get_config(config_name: str) -> TrainConfig:
     if config_name in _CONFIGS_DICT:
         return _CONFIGS_DICT[config_name]
+    if config_name == "fast_gemma3_4b":
+        raise NotImplementedError("config 'fast_gemma3_4b' needs the FAST action tokenizer (ROADMAP queue A, item 12b)")
     closest = difflib.get_close_matches(config_name, _CONFIGS_DICT.keys(), n=3, cutoff=0.0)
     hint = f" Did you mean one of: {', '.join(map(repr, closest))}?" if closest else ""
     raise ValueError(f"Config {config_name!r} not found.{hint}")

@@ -132,7 +132,7 @@ def run(config: TrainConfig, *, device=None) -> dict[int, dict[str, dict]]:
     loaders = {name: create_data_loader(ds_cfg, device=device, split=ds_cfg.eval_split)
                for name, ds_cfg in dataset_configs}
 
-    model = LAP(config.model, device=device, init_seed=None, param_dtype=getattr(torch, config.param_dtype))
+    model = config.model.create_module(device=device, init_seed=None, param_dtype=getattr(torch, config.param_dtype))
     results: dict[int, dict[str, dict]] = {}
     for step in steps:
         for name, loader in loaders.items():

@@ -55,7 +55,10 @@ LOADER_STATE = "dataloader_process_0/dataloader_state.json"
 
 
 def fake_train_batch(cfg: LAPConfig, batch: int, *, device, seed: int = 0):
-    """The synthetic training batch: (observation, actions)."""
+    """The synthetic training batch: (observation, actions). The prompt is
+    the ids 0, 1, ...; for a Gemma3 model it starts with the image blocks
+    ``Gemma3Tokenizer`` writes (``lap_gemma3.image_prompt_head``), and the
+    language-action span starts ``LANGACT_START`` tokens after them."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     h, w = cfg.image_resolution
     t = cfg.max_token_len
@@ -64,10 +67,18 @@ def fake_train_batch(cfg: LAPConfig, batch: int, *, device, seed: int = 0):
         k: torch.randint(0, 256, (batch, h, w, 3), dtype=torch.uint8, generator=gen).to(device)
         for k in cfg.image_keys
     }
+    prompt = torch.arange(t, dtype=torch.int32)
+    langact_start = LANGACT_START
+    if "gemma3" in cfg.paligemma_variant:
+        from lap_tpu_torch.models.lap_gemma3 import image_prompt_head
+
+        head = image_prompt_head(cfg)
+        prompt[: len(head)] = torch.tensor(head, dtype=torch.int32)
+        langact_start += len(head)
     obs = obs.replace(
         images=images,
-        tokenized_prompt=torch.arange(t, dtype=torch.int32, device=device).expand(batch, t).contiguous(),
-        tokenized_langact_mask=(torch.arange(t, device=device) >= LANGACT_START).expand(batch, t).contiguous(),
+        tokenized_prompt=prompt.to(device).expand(batch, t).contiguous(),
+        tokenized_langact_mask=(torch.arange(t, device=device) >= langact_start).expand(batch, t).contiguous(),
         token_loss_mask=torch.ones((batch, t), dtype=torch.bool, device=device),
     )
     actions = torch.randn((batch, cfg.action_horizon, cfg.action_dim), generator=gen).to(device)
@@ -131,7 +142,8 @@ def build_trainer(config: TrainConfig, *, device=None, param_dtype: str | None =
     otherwise, with its optimizer state and EMA."""
     device = resolve_device(device)
     dtype = getattr(torch, param_dtype or config.param_dtype)
-    model = LAP(config.model, device=device, init_seed=config.seed if init_weights else None, param_dtype=dtype)
+    model = config.model.create_module(device=device, init_seed=config.seed if init_weights else None,
+                                       param_dtype=dtype)
     freeze = get_vlm_freeze_filter(config.model) if config.freeze_vlm else get_freeze_filter(config.model)
     steps = make_step_functions(
         model,

@@ -21,9 +21,9 @@ of ``lap_tpu/training/weight_loaders.py``).
   reads no orbax). Every non-LoRA leaf must be present.
 - ``PaliGemmaWeightLoader`` (``:130``, with ``_remap`` ``:153``) reads a
   big_vision PaliGemma / PaliGemma2 ``.npz`` into expert 0 and SigLIP.
-- ``WeightLoaderChoice`` (``:165``). Kind ``gemma3`` waits for the Gemma3
-  family (ROADMAP queue A, item 10) and raises. ``NoOpWeightLoader`` is left
-  out: no choice builds it.
+- ``WeightLoaderChoice`` (``:165``); kind ``gemma3`` builds
+  ``gemma3_weights.Gemma3ScanCompatibleWeightLoader``. ``NoOpWeightLoader``
+  is left out: no choice builds it.
 """
 
 from __future__ import annotations
@@ -192,9 +192,11 @@ class WeightLoaderChoice:
                 raise ValueError(f"{self.kind} loader requires params_path (.npz)")
             return PaliGemmaWeightLoader(self.params_path)
         if self.kind == "gemma3":
-            raise NotImplementedError(
-                "the gemma3 weight loader waits for the Gemma3 family (ROADMAP queue A, item 10)"
-            )
+            from lap_tpu_torch.training.gemma3_weights import Gemma3ScanCompatibleWeightLoader
+
+            if not self.params_path:
+                raise ValueError("gemma3 loader requires params_path")
+            return Gemma3ScanCompatibleWeightLoader(self.params_path)
         raise ValueError(f"unknown weight loader kind: {self.kind}")
 
 

@@ -67,6 +67,7 @@ FWD_CASES = [
     ("group8_h128", (1, 150, 1000, 8, 1, 128)),
     ("group1_h128", (1, 300, 141, 8, 8, 128)),
     ("ragged_b3", (3, 517, 700, 16, 2, 256)),
+    ("gemma3_ar_prefill_group2", (1, 800, 864, 8, 4, 256)),
 ]
 
 
@@ -180,6 +181,7 @@ def test_forward_plan_matches_the_compiled_kernel(cuda, h):
 
 BWD_CASES = [
     (2, 692, 708, 8, 1, 256),  # the LAP-3B training call: 16 all-false action columns
+    (2, 816, 816, 8, 4, 256),  # the LAPGemma3-4B training call's shape: GQA group 2
     (2, 130, 77, 8, 2, 256),
     (1, 65, 200, 8, 2, 128),  # GQA group 4
 ]
@@ -388,7 +390,10 @@ def test_lap_training_pass_goes_through_the_kernels(cuda):
 # rounds its f32 sum to bf16 once; the plain version is taken in f32: one
 # bf16 rounding plus the summation order, |kernel - plain| <= 8e-3 |plain| +
 # 1e-4 max|plain|.
-QUANT_SHAPES = [(2048, 2048), (2048, 32768), (16384, 2048), (2048, 257152), (1024, 8192), (4096, 1024)]
+QUANT_SHAPES = [(2048, 2048), (2048, 32768), (16384, 2048), (2048, 257152), (1024, 8192), (4096, 1024),
+                # LAPGemma3-4B: gemma3_4b's q/kv, attn_vec, gating and linear, the 262,144-row
+                # vocab head, and the gemma3_300m expert's gating (K = 768: int4 group 128).
+                (2560, 2048), (2048, 2560), (2560, 20480), (10240, 2560), (2560, 262144), (768, 6144)]
 
 
 def _assert_dequant_close(got, ref):
@@ -403,11 +408,17 @@ def test_dequant_kernels_match_plain(cuda, m, k, n):
     from lap_tpu_torch.ops import int4_matmul as i4
     from lap_tpu_torch.ops import int8_matmul as i8
 
+    from lap_tpu_torch.models.lora import _int4_group
+
     g = torch.Generator(device=cuda).manual_seed(k + n + m)
     w = torch.randn((k, n), generator=g, device=cuda).to(torch.bfloat16) * 0.02
     x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+
+    def quantize_int4(w):  # the group the serving path takes for this K
+        return i4.quantize_int4(w, group_size=_int4_group(k))
+
     for mod, fn, plain, quantize in ((i8, i8.int8_matmul, i8.int8_matmul_plain, i8.quantize_int8),
-                                     (i4, i4.int4_matmul, i4.int4_matmul_plain, i4.quantize_int4)):
+                                     (i4, i4.int4_matmul, i4.int4_matmul_plain, quantize_int4)):
         wq, s = quantize(w)
         before = mod.launches
         got = fn(x, wq, s)
@@ -512,5 +523,78 @@ def test_quantized_feed_forward_goes_through_the_kernel(cuda):
         w = ff.gating_einsum
         manual = (F.gelu(rows @ w[0], approximate="tanh") * (rows @ w[1])) @ ff.linear
     assert torch.equal(exact, manual)
+    rel = ((got.cpu().float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel < 1e-2
+
+
+def test_flash_forward_at_the_gemma3_prefill_masks(cuda):
+    """LAPGemma3-4B's prefill masks (GQA group 2): a prompt of 577 valid
+    tokens in 800 slots with two 256-token image blocks, left-aligned (flow)
+    and right-aligned with 64 decode slots (AR), on a local layer (sliding
+    window 1024 over RoPE positions against cache slots, the image blocks
+    OR'd in) and a global one. The AR local mask has valid rows with no key:
+    exactly zero with lse -2.3819763e38."""
+    from lap_tpu_torch.models import gemma3
+    from lap_tpu_torch.models.lap_gemma3 import left_to_right_align_with_image_mask
+    from lap_tpu_torch.ops import flash_attention as fa
+    from lap_tpu_torch.ops.masks import make_attn_mask
+
+    t, valid = 800, 577
+    image = torch.zeros((1, t), dtype=torch.bool, device=cuda)
+    image[:, 15:271] = True
+    image[:, 274:530] = True
+    input_mask = torch.arange(t, device=cuda)[None] < valid
+    attn = make_attn_mask(input_mask, torch.zeros_like(input_mask))
+    _, aligned, attn_al, image_al = left_to_right_align_with_image_mask(
+        torch.zeros((1, t, 1), device=cuda), input_mask, attn, image)
+    attn_al = torch.nn.functional.pad(attn_al, (0, 64))
+    masks = []
+    for is_global in (False, True):
+        masks.append(gemma3.effective_mask(attn, torch.cumsum(input_mask, 1) - 1, t, is_global=is_global,
+                                           window=1024, image_mask=image))
+        masks.append(gemma3.effective_mask(attn_al, torch.cumsum(aligned, 1) - 1, t + 64, is_global=is_global,
+                                           window=1024, image_mask=image_al))
+    assert int((~masks[1].any(-1) & aligned).sum()) > 0  # dead valid rows on the AR local layer
+    g = torch.Generator(device=cuda).manual_seed(8)
+    for mask in masks:
+        s = mask.shape[-1]
+        q = torch.randn((1, t, 8, 256), generator=g, device=cuda).to(torch.bfloat16)
+        k, v = (torch.randn((1, s, 4, 256), generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
+        out, lse = fa.flash_attention_forward(q, k, v, mask)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_attention_plain(q, k, v, mask)
+        torch.testing.assert_close(out.float(), ref_out.float(), atol=4e-3, rtol=1.6e-2)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+        dead = ~mask.any(-1)
+        if dead.any():
+            assert out.float()[dead].abs().max().item() == 0.0
+            assert bool((lse.transpose(1, 2)[dead] == fa.MASK_VALUE).all())
+
+
+def test_quantized_gemma3_feed_forward_takes_group_128(cuda):
+    """The gemma3_300m expert's MLP quantized to int4: its gating (K = 768)
+    takes group 128 and the kernel at 16 rows (one launch; the linear stays
+    bf16 under the size threshold), within 1e-2 relative L2 of the plain
+    version on the CPU."""
+    import copy
+
+    from lap_tpu_torch.models import gemma3
+    from lap_tpu_torch.ops import int4_matmul as i4
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    ff = gemma3.FeedForward(768, 3072, device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad():
+        ff.random_init_(g)
+    ff.quantize_("int4")
+    packed, scales = ff.quantized("gating_")
+    assert packed.shape == (384, 6144) and scales.shape == (6, 6144)  # 768 / 128 groups
+    assert ff.quantized("linear_") is None
+    on_cpu = copy.deepcopy(ff).cpu()
+    x = torch.randn((1, 16, 768), generator=g, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        before = i4.launches
+        got = ff(x)
+        assert i4.launches == before + 1
+        ref = on_cpu(x.cpu())
     rel = ((got.cpu().float() - ref.float()).norm() / ref.float().norm()).item()
     assert rel < 1e-2

@@ -22,6 +22,7 @@ SERVING_STACK_MODULES = (
     "policies.output_transforms", "policies.model_transforms", "models.tokenizer", "models.spm", "native",
     "training.checkpoints",
 )
+GEMMA3_MODULES = ("models.gemma3", "models.lap_gemma3", "training.gemma3_weights")
 JAX_LIBS = ("jax", "jaxlib", "flax", "optax", "orbax")
 
 
@@ -39,7 +40,8 @@ def test_port_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
     mods = proc.stdout.split()
     assert len(mods) >= 12 + len(TRAINING_MODULES)
-    assert {f"lap_tpu_torch.{m}" for m in QUANT_SERVING_MODULES + SERVING_STACK_MODULES + ENTRY_POINT_MODULES} <= set(mods)
+    assert {f"lap_tpu_torch.{m}" for m in QUANT_SERVING_MODULES + SERVING_STACK_MODULES + ENTRY_POINT_MODULES
+            + GEMMA3_MODULES} <= set(mods)
 
 
 def test_serving_stack_imports_without_its_transport_or_a_native_build():

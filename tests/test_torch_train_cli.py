@@ -340,7 +340,8 @@ def _assert_same_fields(got, ref, path):
         assert got == ref, (path, got, ref)
 
 
-@pytest.mark.parametrize("name", ["lap", "lap_libero", "debug"])
+@pytest.mark.parametrize("name", ["lap", "lap_libero", "debug", "lap_gemma3_4b", "lap_gemma3_12b", "lap_gemma3_27b",
+                                  "lap_gemma3_4b_libero"])
 def test_config_and_cli_defaults_equal_jax(name):
     _assert_same_fields(port_config.get_config(name), jax_config.get_config(name), name)
     argv = [name, "--exp_name", "x", "--data.repo_id", "fake", "--batch_size", "4", "--keep_period", "none",
@@ -350,6 +351,12 @@ def test_config_and_cli_defaults_equal_jax(name):
     _assert_same_fields(got, ref, f"cli {name}")
     assert got.checkpoint_dir == ref.checkpoint_dir and got.assets_dirs == ref.assets_dirs
     assert got.eval_checkpoint_steps == (3, 6) and got.keep_period is None
+
+
+def test_fast_gemma3_config_waits_for_the_fast_tokenizer():
+    assert jax_config.get_config("fast_gemma3_4b").model.use_fast
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        port_config.get_config("fast_gemma3_4b")
 
 
 def test_entry_points_raise_without_the_card(monkeypatch, tmp_path):

@@ -193,10 +193,12 @@ def test_weight_loader_choice_kinds():
     for kind in ("paligemma", "paligemma2"):
         assert isinstance(port_wl.WeightLoaderChoice(kind=kind, params_path="x.npz").build(),
                           port_wl.PaliGemmaWeightLoader)
-    for kind in ("checkpoint", "paligemma"):
+    from lap_tpu_torch.training.gemma3_weights import Gemma3ScanCompatibleWeightLoader
+
+    assert isinstance(port_wl.WeightLoaderChoice(kind="gemma3", params_path="x").build(),
+                      Gemma3ScanCompatibleWeightLoader)
+    for kind in ("checkpoint", "paligemma", "gemma3"):
         with pytest.raises(ValueError, match="requires params_path"):
             port_wl.WeightLoaderChoice(kind=kind).build()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_wl.WeightLoaderChoice(kind="gemma3", params_path="x").build()
     with pytest.raises(ValueError, match="unknown weight loader kind"):
         port_wl.WeightLoaderChoice(kind="nope").build()
