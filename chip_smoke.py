@@ -8,9 +8,11 @@ with int8/int4 expert MLPs (phase 7), LAP-3B AR language-action serving in
 bf16, int8 and int4 (phase 8), the serving stack from raw robot requests and
 a checkpoint directory (phase 9), the LAP-3B training step (phases 11-12),
 the training entry points with their checkpoints, resume, validation,
-offline eval and serving of the trained step (phase 13), and the Gemma3
+offline eval and serving of the trained step (phase 13), the Gemma3
 family: LAPGemma3-4B flow, AR and quantized serving, its serving stack and
-its training step (phase 14).
+its training step (phase 14), and the rest of the model surface: FAST
+action tokens, the pi0 branch, the VLM-only model and LoRA training
+(phase 15).
 Each is driven with the launch counters set to 0 just before it and read
 just after. Phases, in order; any failure exits non-zero:
  1. build every CUDA kernel of the paths from the sources in this checkout
@@ -72,9 +74,9 @@ just after. Phases, in order; any failure exits non-zero:
     int8 and int4: per request 18 flash launches (the 692-row prefill) and,
     quantized, 73 * AR_STEPS + 1 dequant launches (18 layers x 4 matmuls + the
     vocab head per step, plus the first logits); latency per request and per
-    token, the prefill alone, and one profiled request per mode (an
-    ``ar_profile`` JSON line); the profile of a 16-token request must hold
-    one dequant kernel per dequant call;
+    token, the prefill alone, and one profiled 16-token request per mode (an
+    ``ar_profile`` JSON line), which must hold one dequant kernel per dequant
+    call;
  9. the serving stack: write the serving model to a checkpoint directory
     (``checkpoints.save_params``, bf16, ~6.7 GB, with seeded norm stats),
     restore it through ``serve_policy.create_policy`` (``--env LAP``), and
@@ -123,7 +125,8 @@ just after. Phases, in order; any failure exits non-zero:
     ``action_prediction_l2``, 18 + 18 forward launches); that step directory
     served by ``create_trained_policy`` in bf16 and int8 (18 flash, and 360
     dequant launches in int8); the bytes, seconds and free disk of the saves
-    and restores (a ``train_entry_points`` JSON line);
+    and restores, the seconds the asynchronous save blocked the loop and the
+    run's wait for the write (a ``train_entry_points`` JSON line);
 14. the Gemma3 family (``lap_gemma3_4b``: gemma3_4b VLM, gemma3_300m expert
     with adaRMS, SigLIP So400m/14 with Gemma3's soft-embedding norm and
     bias-free head, 4.82 B parameters, bf16, seeded random weights): the
@@ -145,7 +148,33 @@ just after. Phases, in order; any failure exits non-zero:
     8: 12 forward and 6 of each backward launch a step, the loss at fixed
     noise and time falls, peak memory, one profiled step); the flash
     forward at the prefills and the backward at the training shape timed;
-    a ``gemma3`` JSON line.
+    a ``gemma3`` JSON line;
+15. the rest of the model surface at full width, from one seeded LAP-3B
+    (``pi05_replicated``'s model: prompt 220, prefix 732), its weights
+    carried to the other models where the trees agree (no checkpoint is
+    written): FAST action tokens (raw requests through the config's flow
+    stack, ``VARIANT_REQUESTS`` of them, 18 flash launches each, flash
+    against einsum actions; one through its AR stack, ``ARPolicy`` for
+    ``AR_STEPS`` tokens then ``ExtractFASTActions``: (16, 7) actions equal
+    to the extraction of the greedy tokens; the host time of
+    ``TokenizeFASTInputs`` and of the BPE encode, C++ against Python, with
+    the native host ops' status); the pi0 branch (``pi0_replicated
+    --model.pi05 False``: flow requests as for FAST, flash against einsum);
+    the VLM-only model (``vla0_replicated``, one expert, prefix 902: the
+    flow ``Policy`` refuses it; raw requests through the vla0 stacks,
+    ``AR_STEPS`` tokens in bf16, int8 and int4 with 18 flash and
+    (4*18+1)*AR_STEPS+1 dequant launches a request, the prefill, a profiled
+    16-token request a mode, the teacher-forced logits with the kernels
+    within ``AR_FLOOR_FACTOR`` x the rounding floor); LoRA training (``lap``
+    with gemma_2b_lora + gemma_300m_lora at full width, float32 parameters,
+    AdamW, EMA, batch 8 of the fake loader's first batch, LORA_TRAIN_STEPS
+    steps: 36 forward and 18 of each backward launch a step, the frozen
+    leaves' bits unchanged, every adapter moved, the loss at fixed noise and
+    time falls, the optimizer state on the trainable leaves only, peak
+    memory, one profiled step). Every mask the phase gives the flash forward is a phase-2 case
+    (the FAST and pi0 flow prefixes, the right-aligned FAST and vla0 AR
+    prefills, the LoRA step); the forward is timed at the new prefills; a
+    ``variants`` JSON line, and ``launches_variants`` in every kernel row.
 
 The serving models are freed before the training phases. The last lines of
 standard output are the ``kernels`` JSON line, the card's name and power
@@ -157,6 +186,7 @@ imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -242,13 +272,19 @@ COLD_BYTES = 256e6
 # may drop a few events at the ends of a trace (10 of 4,673 dequant kernels
 # once on an H100, and a few of every other family in the same trace).
 PROFILE_KEPT_SHARE = 0.99
-# Tokens of the AR request whose profile is held to PROFILE_KEPT_SHARE (the
-# report profiles the whole AR_STEPS-token request).
+# Tokens of the profiled AR requests, each held to PROFILE_KEPT_SHARE (the
+# profiler loses far more records of a 64-token trace).
 AR_PROFILE_STEPS = 16
 # A profile idles this long on the host before and after its calls: the
 # profiler keeps only the device events that fall inside its window, and one
 # short timing profile on an H100 once kept none (a dequant time of 0).
 PROFILE_PAD_S = 0.01
+# A profile whose dequant kernels are counted idles this long on either side
+# of its calls instead. The card's kernel timestamps wander against the
+# host's clock within a trace (``profile_cuda`` logs by how much), and with
+# the 10 ms pad one H100 run kept 2,666 of a 16-token Gemma3 request's 2,737
+# dequant kernels.
+PROFILE_COUNT_PAD_S = 0.5
 # A profile that holds no device event is taken again, at most this often.
 PROFILE_ATTEMPTS = 3
 # AR serving at batch 1: a fixed budget and no EOS stop, so the work does not
@@ -319,8 +355,27 @@ G3_TRAIN_STEPS = 4  # after one warm-up step
 G3_AR_REQUESTS = 3
 G3_QUANT_FLOW_REQUESTS = 3
 
+# Phase 15: the rest of the model surface at full width: FAST action tokens
+# (pi05_replicated, LAP-3B with a 220-slot prompt: a 732-token prefix), the
+# pi0 branch (pi0_replicated --model.pi05 False), the VLM-only model
+# (vla0_replicated: gemma_2b + So400m, a 390-slot prompt: a 902-token
+# prefix) and LoRA training (lap with gemma_2b_lora + gemma_300m_lora). Its
+# raw requests tokenize to one prompt a config (a fixed instruction and
+# state, the host RNGs seeded with VARIANT_HOST_SEED before each), so phase 2
+# holds the masks its calls give the flash forward: the flow prefills, the
+# right-aligned AR prefills with AR_STEPS (and AR_FORCED_STEPS) decode slots
+# and the LoRA step's prefix call on the fake loader's first batch.
+FAST_CONFIG, PI0_CONFIG, VLA0_CONFIG = "pi05_replicated", "pi0_replicated", "vla0_replicated"
+FAST_FLOW_CASE, FAST_AR_CASE, PI0_FLOW_CASE = "fast_flow_prefill", "fast_ar_prefill", "pi0_flow_prefill"
+VLA0_AR_CASE, VLA0_FORCED_CASE = "vla0_ar_prefill", "vla0_teacher_forced_prefill"
+LORA_TRAIN_CASE = "lora_training_step"
+VARIANT_REQUESTS = 10
+VARIANT_HOST_SEED = 17
+LORA_TRAIN_STEPS = 4  # the first allocates; the rest are counted and timed
+
 # Forward cases run twice to show that two calls give the same bits.
-FWD_DETERMINISM_CASES = (PREFILL_CASE, BATCH2_CASE, BUCKET_CASE, TRAINING_CASE, G3_FLOW_LOCAL)
+FWD_DETERMINISM_CASES = (PREFILL_CASE, BATCH2_CASE, BUCKET_CASE, TRAINING_CASE, G3_FLOW_LOCAL, FAST_FLOW_CASE,
+                         VLA0_AR_CASE, LORA_TRAIN_CASE)
 # Backward cases run twice to show that two calls give the same bits.
 DETERMINISM_CASES = (TRAINING_CASE, "gqa_group4_h128", G3_TRAIN_CASE)
 
@@ -514,6 +569,7 @@ def kernel_cases(device):
         ("ragged_t_s", (1, 100, 333, 4, 1, 256), rand_mask(1, 100, 333, 0.5)),
         *((name, (1, G3_PROMPT_LEN, g3[name].shape[-1], n3, k3, h3), g3[name])
           for name in (G3_FLOW_LOCAL, G3_FLOW_GLOBAL, G3_AR_LOCAL, G3_AR_GLOBAL)),
+        *variant_kernel_cases(device),
     ]
 
 
@@ -725,6 +781,8 @@ def backward_cases(device):
         ("gqa_group4_h128", (2, 300, 270, 8, 2, 128), gqa4),
         (G3_TRAIN_CASE, (TRAIN_BATCH, G3_PROMPT_LEN + ACTION_HORIZON, G3_PROMPT_LEN + ACTION_HORIZON, *G3_HEADS),
          g3_training_mask(TRAIN_BATCH, device)),
+        (LORA_TRAIN_CASE, (TRAIN_BATCH, LAP_PREFIX, LAP_PREFIX + ACTION_HORIZON, 8, 1, 256),
+         lora_training_mask(device)),
     ]
 
 
@@ -779,14 +837,14 @@ def check_flash_backward(device):
     g = torch.Generator(device=device).manual_seed(4)
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "delta": 0.0, "group_sum": 0.0}
     for name, (b, t, s, n, kh, h), mask in backward_cases(device):
-        if name == TRAINING_CASE:
+        if name in (TRAINING_CASE, LORA_TRAIN_CASE):
             q = training_queries(b, g, device)
         else:
             q = torch.randn((b, t, n, h), generator=g, device=device).to(torch.bfloat16)
         k = torch.randn((b, s, kh, h), generator=g, device=device).to(torch.bfloat16)
         v = torch.randn((b, s, kh, h), generator=g, device=device).to(torch.bfloat16)
         # The output gradient arrives as a slice of the joint tensor's too.
-        dout = (training_queries(b, g, device) if name == TRAINING_CASE
+        dout = (training_queries(b, g, device) if name in (TRAINING_CASE, LORA_TRAIN_CASE)
                 else torch.randn((b, t, n, h), generator=g, device=device).to(torch.bfloat16))
         out, lse = fa.flash_attention_forward(q, k, v, mask)
         grads = fa.flash_attention_backward(q, k, v, mask, out, lse, dout)
@@ -1098,26 +1156,37 @@ def check_quant_kernels(device):
     return worst
 
 
-def profile_cuda(run, what: str):
-    """Run ``run()`` under the profiler, with ``PROFILE_PAD_S`` of idle time
-    on either side, until the trace holds device events, at most
+def profile_cuda(run, what: str, pad_s: float = PROFILE_PAD_S):
+    """Run ``run()`` under the profiler, with ``pad_s`` of idle time on
+    either side, until the trace holds device events, at most
     ``PROFILE_ATTEMPTS`` times. Returns (the CUDA kernels of
     ``key_averages()``, the host's ms for ``run()`` with a final sync);
-    raises if every attempt held none."""
+    raises if every attempt held none. With a pad longer than
+    ``PROFILE_PAD_S`` it logs where the first and last kernels fall on the
+    profiler's clock against the host's start of ``run()`` and its sync."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILE_PAD_S)
+            time.sleep(pad_s)
+            started_ns = time.time_ns()
             t0 = time.monotonic()
             run()
             torch.cuda.synchronize()
+            synced_ns = time.time_ns()
             wall_ms = (time.monotonic() - t0) * 1e3
-            time.sleep(PROFILE_PAD_S)
+            time.sleep(pad_s)
         events = [e for e in prof.key_averages() if e.device_time_total > 0 and e.device_type.name == "CUDA"]
         if events:
+            if pad_s > PROFILE_PAD_S:
+                spans = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in prof.profiler.kineto_results.events()
+                         if e.device_type() == torch.autograd.DeviceType.CUDA]
+                log(f"profile: {what}: the first kernel starts {(min(s for s, _ in spans) - started_ns) / 1e6:.3f} ms "
+                    f"after the host starts the call, the last ends {(max(e for _, e in spans) - synced_ns) / 1e6:.3f} "
+                    f"ms after the host's sync (the profiler's clock; the window reaches {pad_s * 1e3:.0f} ms "
+                    f"beyond both)")
             return events, wall_ms
         log(f"profile: the trace of {what} holds no device event (attempt {attempt} of {PROFILE_ATTEMPTS})")
     raise AssertionError(f"the profiler recorded no device time for {what} in {PROFILE_ATTEMPTS} attempts")
@@ -1293,8 +1362,8 @@ def report_profile(events, what: str, wall_ms: float, tokens: int = 0) -> int:
     return sum(e.count for e in events if any(k in e.key for k in DEQUANT_KERNEL_NAMES))
 
 
-def profile_one_request(policy, request, what: str = "infer", tokens: int = 0) -> int:
-    events, wall_ms = profile_cuda(lambda: policy.infer(request), what)
+def profile_one_request(policy, request, what: str = "infer", tokens: int = 0, pad_s: float = PROFILE_PAD_S) -> int:
+    events, wall_ms = profile_cuda(lambda: policy.infer(request), what, pad_s)
     return report_profile(events, what, wall_ms, tokens)
 
 
@@ -1907,36 +1976,23 @@ def run_ar(model, config, device):
             f"ms_per_token(p50/{AR_STEPS})={p50 / AR_STEPS:.3f} prefill_ms={prefill_ms:.3f} "
             f"decode_ms_per_token={(p50 - prefill_ms) / AR_STEPS:.3f} "
             f"all_ms={[round(x, 3) for x in latencies]} tokens[0][:8]={tokens[0, :8].tolist()}")
-        # The whole request's profile is the report's. Kineto drops the GPU
-        # records that it places outside the trace's window ("Out-of-range" in
-        # its log with KINETO_LOG_LEVEL=1; "CUPTI stopped early? = 0", so no
-        # buffer fills), on an H100 far more of them in a 64-token trace than
-        # in a 16-token one: this profile's share of the dequant kernels is
-        # reported, and only its upper end is held.
-        calls = sum(expected[1:])
-        profiled = profile_one_request(policy, requests[0], what=f"AR request ({mode}, {AR_STEPS} tokens)",
-                                       tokens=AR_STEPS)
-        kept[mode] = {"tokens": AR_STEPS, "dequant_kernels": profiled, "dequant_calls": calls}
-        log(f"profile: AR {mode} dequant kernels in the profile {profiled} for {calls} dequant calls")
-        if profiled > calls:
-            raise AssertionError(f"{mode} AR: the profile holds {profiled} dequant kernels for {calls} dequant calls")
-        # One kernel per dequant call: a profile of a request of
-        # AR_PROFILE_STEPS tokens holds as many dequant kernels as the counters
-        # count calls, less the few records a trace drops at its window's
-        # edges; a second kernel per call would double the count.
-        if calls:
-            short = ARPolicy(model, max_decoding_steps=AR_PROFILE_STEPS, stop_on_eos=False, seed=0)
-            short_calls = (4 * depth + 1) * AR_PROFILE_STEPS + 1
-            events, _ = profile_cuda(lambda: short.infer(requests[0]),
-                                     f"AR request ({mode}, {AR_PROFILE_STEPS} tokens)")
-            short_profiled = sum(e.count for e in events if any(k in e.key for k in DEQUANT_KERNEL_NAMES))
-            kept[mode]["check"] = {"tokens": AR_PROFILE_STEPS, "dequant_kernels": short_profiled,
-                                   "dequant_calls": short_calls}
-            log(f"profile: AR {mode}, {AR_PROFILE_STEPS} tokens: dequant kernels in the profile {short_profiled} "
-                f"for {short_calls} dequant calls")
-            if not PROFILE_KEPT_SHARE * short_calls <= short_profiled <= short_calls:
-                raise AssertionError(f"{mode} AR: the profile of {AR_PROFILE_STEPS} tokens holds {short_profiled} "
-                                     f"dequant kernels for {short_calls} dequant calls")
+        # One profiled request of AR_PROFILE_STEPS tokens a mode is the
+        # report's and the check's: Kineto drops the GPU records that it
+        # places outside a trace's window ("Out-of-range" in its log with
+        # KINETO_LOG_LEVEL=1), far more of them in a 64-token trace. One
+        # kernel per dequant call: the profile holds as many dequant kernels
+        # as the counters count calls, less the few records a trace drops at
+        # its window's edges; a second kernel per call would double the count.
+        short = ARPolicy(model, max_decoding_steps=AR_PROFILE_STEPS, stop_on_eos=False, seed=0)
+        calls = (4 * depth + 1) * AR_PROFILE_STEPS + 1 if mode != "bf16" else 0
+        profiled = profile_one_request(short, requests[0], what=f"AR request ({mode}, {AR_PROFILE_STEPS} tokens)",
+                                       tokens=AR_PROFILE_STEPS, pad_s=PROFILE_COUNT_PAD_S)
+        kept[mode] = {"tokens": AR_PROFILE_STEPS, "dequant_kernels": profiled, "dequant_calls": calls}
+        log(f"profile: AR {mode}, {AR_PROFILE_STEPS} tokens: dequant kernels in the profile {profiled} "
+            f"for {calls} dequant calls")
+        if not PROFILE_KEPT_SHARE * calls <= profiled <= calls:
+            raise AssertionError(f"{mode} AR: the profile of {AR_PROFILE_STEPS} tokens holds {profiled} "
+                                 f"dequant kernels for {calls} dequant calls")
     print(json.dumps({"ar_profile": kept}), flush=True)
     model.quantize_(None)
     return totals
@@ -2308,12 +2364,13 @@ TRAIN_PHASE_DEPTH = 9
 def state_checksums(state) -> dict:
     """Two int64 sums of every tensor's bits (plain, and weighted by the
     position mod 65521, so that a swap of two values shows): parameters,
-    Adam mu and nu, EMA, with the step and the Adam count."""
+    the optimizer's buffers (Adam mu and nu), EMA, with the step and the
+    optimizer's count."""
     import torch
 
     tensors = {f"params/{n}": p for n, p in state.params.items()}
-    tensors.update({f"mu/{n}": t for n, t in zip(state.trainable, state.opt_state.mu, strict=True)})
-    tensors.update({f"nu/{n}": t for n, t in zip(state.trainable, state.opt_state.nu, strict=True)})
+    for kind, buffers in state.opt_state.buffers().items():
+        tensors.update({f"{kind}/{n}": t for n, t in zip(state.trainable, buffers, strict=True)})
     tensors.update({f"ema/{n}": t for n, t in (state.ema_params or {}).items()})
     sums = []
     chunk = 1 << 26
@@ -2408,6 +2465,10 @@ def run_train_entry_points(device):
         cursor = first.loader.state_dict()
         numbers["write_s"] = first.checkpoints.last_save["seconds"]
         numbers["write_bytes"] = first.checkpoints.last_save["bytes"]
+        # Asynchronous save: the loop waits for the copy to host memory
+        # (blocked_s); the run waits for the write before it returns.
+        numbers["save_blocked_s"] = first.checkpoints.last_save["blocked_s"]
+        numbers["save_wait_s"] = first.timings["save_wait_s"]
         free_after_one = shutil.disk_usage(run_dir).free
         # The loss the next batch gives on the in-memory state, with the next
         # step's randomness: the first step of a resumed run must give it.
@@ -2417,8 +2478,10 @@ def run_train_entry_points(device):
             *batch, train=True, generator=step_generator(first.trainer.config.seed, state.step, device))
         next_loss = loss.item()
         count(before, "next batch's loss on run 1's state")
-        log(f"train entry points: run 1 took {run1_s:.1f} s; saved step {state.step} "
-            f"({numbers['write_bytes']} bytes in {numbers['write_s']:.2f} s); {len(saved) - 2} state tensors "
+        log(f"train entry points: run 1 took {run1_s:.1f} s; saved step {state.step} asynchronously "
+            f"({numbers['write_bytes']} bytes written in {numbers['write_s']:.2f} s; save() blocked the loop "
+            f"{numbers['save_blocked_s']:.2f} s, wait_until_finished {numbers['save_wait_s']:.2f} s); "
+            f"{len(saved) - 2} state tensors "
             f"checksummed; loader cursor {cursor}; next batch's loss {next_loss!r}")
         first.close()
         del first, state, batch, loss
@@ -2548,19 +2611,8 @@ def quantized_calls(model, experts) -> int:
 
 
 def check_g3_masks(seen, cases, what: str) -> dict:
-    """Every mask the path gave the flash forward is one of ``cases``
-    (name -> mask, batch rows in any order); returns how many of each."""
-    import torch
-
-    counts = dict.fromkeys(cases, 0)
-    for m in seen:
-        name = next((n for n, c in cases.items() if m.shape == c.shape and (torch.equal(m, c) or torch.equal(m, c.flip(0)))),
-                    None)
-        if name is None:
-            raise AssertionError(f"gemma3 {what}: a flash mask {tuple(m.shape)} is none of its kernel cases {list(cases)}")
-        counts[name] += 1
-    log(f"gemma3 {what}: the {len(seen)} masks the flash forward was given are its kernel cases' ({counts})")
-    return counts
+    """``check_case_masks`` for phase 14's paths."""
+    return check_case_masks(seen, cases, f"gemma3 {what}")
 
 
 def run_gemma3_serving(device) -> dict:
@@ -2725,7 +2777,7 @@ def run_gemma3_serving(device) -> dict:
         # one dequant kernel per dequant call, as phase 8 holds it.
         short = ARPolicy(model, max_decoding_steps=AR_PROFILE_STEPS, stop_on_eos=False, seed=0)
         short_calls = per_token * AR_PROFILE_STEPS + (per_token > 0)
-        profiled = profile_one_request(short, ar_requests[0], tokens=AR_PROFILE_STEPS,
+        profiled = profile_one_request(short, ar_requests[0], tokens=AR_PROFILE_STEPS, pad_s=PROFILE_COUNT_PAD_S,
                                        what=f"gemma3 AR request ({mode}, {AR_PROFILE_STEPS} tokens)")
         log(f"profile: gemma3 AR {mode}, {AR_PROFILE_STEPS} tokens: dequant kernels in the profile {profiled} for "
             f"{short_calls} dequant calls")
@@ -2923,6 +2975,649 @@ def check_small_gemma3_reference(device) -> None:
         raise AssertionError("card and CPU disagree on the dummy LAPGemma3")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the rest of the model surface at full width (FAST, pi0, the
+# VLM-only vla0 model, LoRA training)
+# ---------------------------------------------------------------------------
+
+
+def _seed_host(seed: int = VARIANT_HOST_SEED) -> None:
+    """The host transforms draw from numpy's and Python's global RNGs (the
+    data configs' wrist dropout): the same seed before every raw request, and
+    before the phase-2 cases are built from it, gives the same inputs."""
+    import random
+
+    import numpy as np
+
+    np.random.seed(seed)
+    random.seed(seed)
+
+
+def variant_raw_request(seed: int, config) -> dict:
+    """A raw robot request of phase 15: ``raw_request``'s cameras, with a
+    fixed instruction and state (discretised into the prompt), so that every
+    request of a config tokenizes to the same prompt."""
+    import numpy as np
+
+    request = raw_request(seed, config, prompt=SERVING_PROMPTS[0])
+    request["observation"]["state"] = np.linspace(-0.5, 0.5, config.action_dim).astype(np.float32)
+    return request
+
+
+@functools.lru_cache(maxsize=None)
+def variant_prepared(config_name: str, ar: bool):
+    """The request of ``config_name`` after its policy's input stack (a dict
+    of numpy arrays), as ``Policy.infer`` prepares it."""
+    from lap_tpu_torch.policies import policy_config
+    from lap_tpu_torch.policies.model_transforms import compose
+    from lap_tpu_torch.training.config import get_config
+
+    train_config = get_config(config_name)
+    stats = serving_norm_stats(train_config.model.action_dim)
+    inputs, _ = policy_config._build_transform_stacks(train_config, stats, ar=ar)
+    _seed_host()
+    return compose(inputs)(dict(variant_raw_request(500, train_config.model)))
+
+
+def prefix_attention_mask(prepared: dict, device, *, tokens_per_camera: int = 256):
+    """The prefix's (input mask, attention mask) as ``LAP.embed_prefix`` and
+    ``make_attn_mask`` build them for this prepared request: the cameras'
+    tokens bidirectional, the prompt's language-action tokens causal."""
+    import numpy as np
+    import torch
+
+    from lap_tpu_torch.ops.masks import make_attn_mask
+
+    cams = [np.full(tokens_per_camera, bool(prepared["image_mask"][k])) for k in prepared["image"]]
+    prompt = np.asarray(prepared["tokenized_prompt_mask"], bool)
+    langact = prepared.get("tokenized_langact_mask")
+    langact = np.zeros_like(prompt) if langact is None else np.asarray(langact, bool)
+    input_mask = torch.from_numpy(np.concatenate([*cams, prompt]))[None].to(device)
+    ar = torch.from_numpy(np.concatenate([np.zeros(len(cams) * tokens_per_camera, bool), langact]))[None].to(device)
+    return input_mask, make_attn_mask(input_mask, ar)
+
+
+def right_aligned(prepared: dict, decode_slots: int, device):
+    """The AR prefill's mask: the prefix right-aligned and padded with
+    ``decode_slots`` masked key columns, as ``LAP.ar_prefill`` passes it."""
+    import torch
+
+    from lap_tpu_torch.models.lap_model import left_to_right_align
+
+    input_mask, attn = prefix_attention_mask(prepared, device)
+    x = torch.zeros((1, input_mask.shape[1], 1), device=device)
+    _, _, aligned = left_to_right_align(x, input_mask, attn)
+    return torch.nn.functional.pad(aligned, (0, decode_slots)).contiguous()
+
+
+def variant_kernel_cases(device) -> list:
+    """Phase 15's flash-forward cases: the masks of the requests it serves
+    (built from the same prepared requests)."""
+    fast, pi0 = variant_prepared(FAST_CONFIG, False), variant_prepared(PI0_CONFIG, False)
+    vla0 = variant_prepared(VLA0_CONFIG, True)
+    out = []
+    for name, mask in (
+        (FAST_FLOW_CASE, prefix_attention_mask(fast, device)[1].contiguous()),
+        (FAST_AR_CASE, right_aligned(variant_prepared(FAST_CONFIG, True), AR_STEPS, device)),
+        (PI0_FLOW_CASE, prefix_attention_mask(pi0, device)[1].contiguous()),
+        (VLA0_AR_CASE, right_aligned(vla0, AR_STEPS, device)),
+        (VLA0_FORCED_CASE, right_aligned(vla0, AR_FORCED_STEPS, device)),
+    ):
+        out.append((name, (1, mask.shape[1], mask.shape[2], 8, 1, 256), mask))
+    return out
+
+
+def lora_train_config():
+    """The LoRA training phase's config: ``lap`` with both experts' LoRA
+    variants, the fake loader, batch TRAIN_BATCH, the config's float32
+    parameters and EMA, the warm-up cut to the run (as phase 11's)."""
+    import dataclasses
+
+    from lap_tpu_torch.training.config import cli
+    from lap_tpu_torch.training.optimizer import CosineDecaySchedule
+
+    config = cli(["lap", "--model.paligemma_variant", "gemma_2b_lora", "--model.action_expert_variant",
+                  "gemma_300m_lora", "--data.repo_id", "fake", "--data.data_mix", "none", "--batch_size",
+                  str(TRAIN_BATCH), "--exp_name", "lora"])
+    sched = config.lr_schedule
+    return dataclasses.replace(config, lr_schedule=CosineDecaySchedule(
+        warmup_steps=LORA_TRAIN_STEPS + 2, peak_lr=sched.peak_lr, decay_steps=sched.decay_steps,
+        decay_lr=sched.decay_lr))
+
+
+@functools.lru_cache(maxsize=None)
+def lora_train_batch(device):
+    """The fake loader's first batch of the LoRA config (seed 0) on
+    ``device``: the fixed batch the LoRA phase trains on."""
+    from lap_tpu_torch.data.loader import create_data_loader
+
+    loader = create_data_loader(lora_train_config(), device=device, split="train")
+    it = iter(loader)
+    try:
+        return next(it)
+    finally:
+        it.close()
+
+
+def lora_training_mask(device):
+    """The mask of the LoRA step's prefix call ([B, 692, 708], the first 692
+    rows of the joint mask, as ``compute_loss`` builds it for the fixed
+    batch)."""
+    import torch
+
+    from lap_tpu_torch.models.lap_model import LAP
+
+    obs, _ = lora_train_batch(device)
+    b = obs.tokenized_prompt.shape[0]
+    cams = [obs.image_masks[k].to(torch.bool)[:, None].expand(b, 256) for k in obs.images]
+    prompt = obs.tokenized_prompt_mask.to(torch.bool)
+    langact = obs.tokenized_langact_mask.to(torch.bool)
+    prefix = torch.cat([*cams, prompt], dim=1)
+    prefix_ar = torch.cat([torch.zeros((b, 256 * len(cams)), dtype=torch.bool, device=device), langact], dim=1)
+    action_view = prefix & ~torch.nn.functional.pad(langact, (256 * len(cams), 0))
+    suffix = torch.ones((b, ACTION_HORIZON), dtype=torch.bool, device=device)
+    suffix_ar = torch.zeros_like(suffix)
+    suffix_ar[:, 0] = True
+    # Neither method reads the model: called on the class.
+    joint = LAP._build_combined_attention_mask(None, prefix, prefix_ar, action_view, suffix, suffix_ar)
+    return joint.contiguous()[:, :prefix.shape[1]]
+
+
+def check_case_masks(seen, cases, what: str) -> dict:
+    """Every mask the path gave the flash forward is one of ``cases``
+    (name -> mask, batch rows in any order); returns how many of each."""
+    import torch
+
+    counts = dict.fromkeys(cases, 0)
+    for m in seen:
+        name = next((n for n, c in cases.items()
+                     if m.shape == c.shape and (torch.equal(m, c) or torch.equal(m, c.flip(0)))), None)
+        if name is None:
+            raise AssertionError(f"{what}: a flash mask {tuple(m.shape)} is none of its kernel cases {list(cases)}")
+        counts[name] += 1
+    log(f"{what}: the {len(seen)} masks the flash forward was given are its kernel cases' ({counts})")
+    return counts
+
+
+def flow_requests(policy, requests, depth, what: str, cases: dict) -> dict:
+    """Serve ``requests`` through ``policy`` (the host seeded before each),
+    with ``depth`` flash launches and no dequant launch each, every mask a
+    kernel case; returns p50/p90 and the launches."""
+    import numpy as np
+
+    _seed_host()
+    policy.infer(requests[0])  # first use at these shapes
+    reset_launch_counters()
+    latencies, per_request = [], []
+    with flash_masks() as seen:
+        for req in requests:
+            before = serving_launches()
+            _seed_host()
+            out = policy.infer(req)
+            per_request.append(tuple(a - b for a, b in zip(serving_launches(), before)))
+            latencies.append(out["policy_timing"]["infer_ms"])
+            actions = np.asarray(out["actions"])
+            if actions.shape != (ACTION_HORIZON, 7) or not np.isfinite(actions).all():
+                raise AssertionError(f"{what}: bad actions {actions.shape}")
+    if any(c != (depth, 0, 0) for c in per_request):
+        raise AssertionError(f"{what}: expected {depth} flash and no dequant launches a request, got {per_request}")
+    check_case_masks(seen, cases, what)
+    p50, p90 = percentiles(latencies)
+    log(f"{what}: {len(requests)} raw requests at batch 1, {depth} flash launches each; infer p50_ms={p50:.3f} "
+        f"p90_ms={p90:.3f} all_ms={[round(x, 3) for x in latencies]}")
+    return {"p50_ms": p50, "p90_ms": p90, "launches": {"fwd": serving_launches()[0]}}
+
+
+def flash_vs_einsum_actions(model, prepared: dict, device, what: str) -> float:
+    """Actions of one prepared request with the flash kernels and with einsum
+    attention, same noise: their relative L2 distance (<= PATH_REL_TOL)."""
+    import torch
+
+    from lap_tpu_torch.models.types import CoTObservation
+    from lap_tpu_torch.policies.policy import _stack_batch
+
+    obs = CoTObservation.from_dict(_stack_batch([prepared]), device=device)
+    noise = torch.randn((1, model.config.action_horizon, model.config.action_dim),
+                        generator=torch.Generator(device=device).manual_seed(5), device=device)
+    with torch.inference_mode():
+        a_flash = model.sample_actions(obs, noise=noise)
+        model.set_attn_impl("xla")
+        a_xla = model.sample_actions(obs, noise=noise)
+        model.set_attn_impl(model.config.attn_impl)
+    rel = ((a_flash - a_xla).norm() / a_xla.norm()).item()
+    log(f"path: {what} flash vs xla attention actions rel_err={rel:.3e} "
+        f"max_abs_err={(a_flash - a_xla).abs().max().item():.3e}")
+    if not (torch.isfinite(a_flash).all() and rel <= PATH_REL_TOL):
+        raise AssertionError(f"{what}: flash vs xla actions rel {rel} > {PATH_REL_TOL}")
+    return rel
+
+
+def carried_model(source, config, device, seed: int):
+    """A model of ``config`` whose parameters at the JAX params paths it
+    shares with ``source`` (the weight bridge's ``jax_path``, with equal
+    shapes) are copied from it on the card, the rest (pi0's projections and
+    plain expert-1 norms) seeded random. Returns (model, carried, total)."""
+    import torch
+
+    from lap_tpu_torch.models import convert
+    from lap_tpu_torch.models.init import random_init_
+
+    model = config.create_module(device=device, init_seed=None)
+    own = dict(model.named_parameters())
+    by_path = {convert.jax_path(n): p for n, p in source.named_parameters()}
+    pairs = [(p, by_path[convert.jax_path(n)]) for n, p in own.items()
+             if convert.jax_path(n) in by_path and by_path[convert.jax_path(n)].shape == p.shape]
+    if len(pairs) != len(own):
+        random_init_(model, seed)
+    with torch.no_grad():
+        for target, value in pairs:
+            target.copy_(value)
+    return model, len(pairs), len(own)
+
+
+def time_fast_tokenize(train_config) -> dict:
+    """Host time of ``TokenizeFASTInputs`` (the config's DCT codec) on a
+    request with an action chunk (training) and without (serving), and of
+    the FAST BPE encode, C++ against Python, on a trained vocabulary; with
+    the native host ops' status."""
+    import numpy as np
+
+    from lap_tpu_torch import native
+    from lap_tpu_torch.models.bpe import IntBPE
+    from lap_tpu_torch.models.fast_tokenizer import FASTActionCodec, TokenizeFASTInputs, make_fast_tokenizer
+
+    model = train_config.model
+    tok = make_fast_tokenizer(model)
+    transform = TokenizeFASTInputs(tok, discrete_state_input=model.discrete_state_input)
+    rng = np.random.default_rng(21)
+    state = rng.uniform(-1, 1, model.action_dim).astype(np.float32)
+    actions = np.tanh(rng.normal(size=(model.action_horizon, model.action_dim))).astype(np.float32)
+
+    def per_call_ms(fn, n=200):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    codec = FASTActionCodec()
+    corpus = [codec.quantize(np.tanh(rng.normal(size=actions.shape) * 0.3)) for _ in range(64)]
+    bpe = IntBPE.train(corpus, alphabet_size=codec.num_bins, num_merges=128)
+    symbols = codec.quantize(actions)
+    out = {
+        "tokenize_with_actions_ms": per_call_ms(lambda: transform({"prompt": "stack the cups", "state": state,
+                                                                  "actions": actions})),
+        "tokenize_serving_ms": per_call_ms(lambda: transform({"prompt": "stack the cups", "state": state})),
+        "bpe_encode_ms": per_call_ms(lambda: bpe.encode(symbols)),
+        "bpe_encode_py_ms": per_call_ms(lambda: bpe.encode_py(symbols)),
+        "native": native.status(),
+    }
+    if bpe.encode(symbols) != bpe.encode_py(symbols):
+        raise AssertionError("the native BPE encode differs from the Python one")
+    log(f"fast: host TokenizeFASTInputs {out['tokenize_with_actions_ms']:.3f} ms a request with an action chunk, "
+        f"{out['tokenize_serving_ms']:.3f} ms without; BPE encode of {len(symbols)} symbols "
+        f"{out['bpe_encode_ms']:.4f} ms (C++) vs {out['bpe_encode_py_ms']:.4f} ms (Python); native host ops: "
+        f"{out['native']}")
+    return out
+
+
+def run_fast_serving(model, device) -> dict:
+    """Phase 15.1: pi05_replicated (FAST action tokens, LAP-3B, prompt 220,
+    prefix 732): raw requests through its flow stack (``Policy``) and its AR
+    stack (``ARPolicy`` for AR_STEPS tokens, then ``ExtractFASTActions``)."""
+    import numpy as np
+
+    from lap_tpu_torch.models.types import CoTObservation
+    from lap_tpu_torch.policies import policy_config
+    from lap_tpu_torch.policies.policy import ARPolicy, Policy, _stack_batch
+    from lap_tpu_torch.training.config import get_config
+
+    train_config = get_config(FAST_CONFIG)
+    stats = serving_norm_stats(7)
+    ar_request = variant_raw_request(500, train_config.model)  # the request variant_prepared holds
+    depth = len(model.llm.layers)
+    cases = {n: m for n, _, m in variant_kernel_cases(device)}
+    inputs, outputs = policy_config._build_transform_stacks(train_config, stats, ar=False)
+    policy = Policy(model, input_transforms=inputs, output_transforms=outputs, seed=0)
+    requests = [variant_raw_request(510 + i, train_config.model) for i in range(VARIANT_REQUESTS)]
+    numbers = {"prompt_valid": int(np.sum(variant_prepared(FAST_CONFIG, False)["tokenized_prompt_mask"]))}
+    numbers["flow"] = flow_requests(policy, requests, depth, "fast flow", {FAST_FLOW_CASE: cases[FAST_FLOW_CASE]})
+    numbers["flow"]["rel_err"] = flash_vs_einsum_actions(model, variant_prepared(FAST_CONFIG, False), device,
+                                                         "fast flow")
+
+    inputs, outputs = policy_config._build_transform_stacks(train_config, stats, ar=True)
+    ar = ARPolicy(model, input_transforms=inputs, output_transforms=outputs, max_decoding_steps=AR_STEPS,
+                  stop_on_eos=False, seed=0)
+    _seed_host()
+    ar.infer(requests[0])
+    reset_launch_counters()
+    with flash_masks() as seen:
+        _seed_host()
+        out = ar.infer(ar_request)
+    check_case_masks(seen, {FAST_AR_CASE: cases[FAST_AR_CASE]}, "fast AR")
+    actions = np.asarray(out["actions"])
+    if actions.shape != (ACTION_HORIZON, 7) or not np.isfinite(actions).all() or serving_launches() != (depth, 0, 0):
+        raise AssertionError(f"fast AR: actions {actions.shape}, launches {serving_launches()}")
+    # The served actions are ExtractFASTActions of the tokens the model gave.
+    obs = CoTObservation.from_dict(_stack_batch([variant_prepared(FAST_CONFIG, True)]), device=device)
+    tokens = model.sample_tokens(obs, max_decoding_steps=AR_STEPS, stop_on_eos=False,
+                                 generator=None).cpu().numpy()
+    extract = outputs[0]
+    again = extract({"tokens": tokens})["actions"]
+    tok = extract.tokenizer
+    vocab = tok._tokenizer.vocab_size()
+    lo, hi = vocab - 1 - tok.skip_tokens - (tok.codec.vocab_size - 1), vocab - 1 - tok.skip_tokens
+    in_range = int(((tokens >= lo) & (tokens <= hi)).sum())
+    if not np.array_equal(again, actions):
+        raise AssertionError("fast AR: the served actions are not ExtractFASTActions of the greedy tokens")
+    numbers["ar"] = {"infer_ms": out["policy_timing"]["infer_ms"], "tokens": AR_STEPS,
+                     "tokens_in_action_range": in_range, "action_range": [lo, hi]}
+    numbers["launches"] = {"fwd": numbers["flow"]["launches"]["fwd"] + depth}
+    log(f"fast AR: a raw request through the FAST stack, {AR_STEPS} tokens, {depth} flash launches, in "
+        f"{out['policy_timing']['infer_ms']:.1f} ms; {in_range} of {AR_STEPS} tokens in the action range [{lo}, {hi}] "
+        f"(test vocabulary, random weights), ExtractFASTActions gives {actions.shape} (the rest padded with "
+        f"num_bins // 2)")
+    numbers["tokenize"] = time_fast_tokenize(train_config)
+    return numbers
+
+
+def run_pi0_serving(base, device) -> dict:
+    """Phase 15.2: pi0_replicated with ``--model.pi05 False`` (LAP-3B, prefix
+    732): the shared weights carried from the LAP-3B model, flow requests
+    through its stack, flash against einsum actions."""
+    from lap_tpu_torch.policies import policy_config
+    from lap_tpu_torch.policies.policy import Policy
+    from lap_tpu_torch.training.config import cli
+
+    train_config = cli([PI0_CONFIG, "--model.pi05", "False"])
+    t0 = time.monotonic()
+    model, carried, total = carried_model(base, train_config.model, device, seed=1)
+    depth = len(model.llm.layers)
+    log(f"pi0: built the pi0 model ({sum(p.numel() for p in model.parameters())} params, bf16) in "
+        f"{time.monotonic() - t0:.1f} s, {carried} of {total} JAX leaves carried from LAP-3B")
+    cases = {n: m for n, _, m in variant_kernel_cases(device)}
+    inputs, outputs = policy_config._build_transform_stacks(train_config, serving_norm_stats(7), ar=False)
+    policy = Policy(model, input_transforms=inputs, output_transforms=outputs, seed=0)
+    requests = [variant_raw_request(520 + i, train_config.model) for i in range(VARIANT_REQUESTS)]
+    numbers = flow_requests(policy, requests, depth, "pi0 flow", {PI0_FLOW_CASE: cases[PI0_FLOW_CASE]})
+    numbers["rel_err"] = flash_vs_einsum_actions(model, variant_prepared(PI0_CONFIG, False), device, "pi0 flow")
+    numbers["carried_leaves"] = [carried, total]
+    del model, policy
+    release()
+    return numbers
+
+
+def run_vla0_serving(base, device) -> dict:
+    """Phase 15.3: vla0_replicated (the VLM-only model: gemma_2b + So400m,
+    prompt 390, prefix 902, horizon 10), carried from LAP-3B's image encoder
+    and expert 0: a raw request through the vla0 stacks, AR for AR_STEPS
+    tokens in bf16, int8 and int4 (launches, p50, prefill), a profiled
+    AR_PROFILE_STEPS-token request per mode, and the teacher-forced logits
+    with the kernels against the plain versions."""
+    import numpy as np
+    import torch
+
+    from lap_tpu_torch.models.types import CoTObservation
+    from lap_tpu_torch.policies import policy_config
+    from lap_tpu_torch.policies.policy import ARPolicy, Policy, _stack_batch
+    from lap_tpu_torch.training.config import get_config
+
+    train_config = get_config(VLA0_CONFIG)
+    t0 = time.monotonic()
+    model, carried, total = carried_model(base, train_config.model, device, seed=2)
+    if carried != total:
+        raise AssertionError(f"vla0: {carried} of {total} leaves carried; the VLM-only tree is LAP-3B's expert 0 "
+                             f"and image encoder")
+    depth = len(model.llm.layers)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"vla0: built the VLM-only model ({n_params} params, {model.num_experts} expert, bf16) in "
+        f"{time.monotonic() - t0:.1f} s, every leaf carried from LAP-3B")
+    try:
+        Policy(model)
+        raise AssertionError("vla0: the flow Policy took a VLM-only model")
+    except ValueError as e:
+        log(f"vla0: the flow Policy refuses the model: {e}")
+    cases = {n: m for n, _, m in variant_kernel_cases(device)}
+    stats = serving_norm_stats(7)
+    inputs, outputs = policy_config._build_transform_stacks(train_config, stats, ar=True)
+    numbers = {"params": n_params, "prompt_valid": int(np.sum(variant_prepared(VLA0_CONFIG, True)[
+        "tokenized_prompt_mask"]))}
+    requests = [variant_raw_request(530 + i, train_config.model) for i in range(AR_REQUESTS)]
+    launches = {"fwd": 0, "int8": 0, "int4": 0}
+    obs = CoTObservation.from_dict(_stack_batch([variant_prepared(VLA0_CONFIG, True)]), device=device)
+    for mode in ("bf16", "int8", "int4"):
+        model.quantize_(None if mode == "bf16" else mode)
+        # A step's dequant calls: the quantized weights of the one expert's
+        # layers (4 a layer at full width) and the vocab head.
+        per_token = quantized_calls(model, [0]) + 1 if mode != "bf16" else 0
+        per_quant = per_token * AR_STEPS + 1
+        policy = ARPolicy(model, input_transforms=inputs, output_transforms=outputs, max_decoding_steps=AR_STEPS,
+                          stop_on_eos=False, seed=0)
+        _seed_host()
+        policy.infer(requests[0])
+        expected = (depth, per_quant if mode == "int8" else 0, per_quant if mode == "int4" else 0)
+        reset_launch_counters()
+        latencies, per_request = [], []
+        with flash_masks() as seen:
+            for req in requests:
+                before = serving_launches()
+                _seed_host()
+                out = policy.infer(req)
+                per_request.append(tuple(a - b for a, b in zip(serving_launches(), before)))
+                latencies.append(out["policy_timing"]["infer_ms"])
+                actions = np.asarray(out["actions"])
+                if actions.shape != (10, 7) or not np.isfinite(actions).all():
+                    raise AssertionError(f"vla0 {mode}: the vla0 output stack gave {actions.shape}")
+        if any(c != expected for c in per_request):
+            raise AssertionError(f"vla0 {mode}: expected {expected} (flash, int8, int4) launches, got {per_request}")
+        for key, n in zip(("fwd", "int8", "int4"), serving_launches(), strict=True):
+            launches[key] += n
+        check_case_masks(seen, {VLA0_AR_CASE: cases[VLA0_AR_CASE]}, f"vla0 AR {mode}")
+        prefill = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            model.ar_prefill(obs, AR_STEPS)
+            torch.cuda.synchronize()
+            prefill.append((time.monotonic() - t1) * 1e3)
+        p50, p90 = percentiles(latencies)
+        prefill_ms = statistics.median(prefill)
+        numbers[mode] = {"p50_ms": p50, "p90_ms": p90, "ms_per_token": p50 / AR_STEPS, "prefill_ms": prefill_ms,
+                         "decode_ms_per_token": (p50 - prefill_ms) / AR_STEPS,
+                         "launches_per_request": list(expected), "dequant_launches_per_token": per_token}
+        log(f"vla0 AR {mode}: {AR_STEPS} tokens per raw request at batch 1, (flash, int8, int4) launches per request "
+            f"{expected}; infer p50_ms={p50:.3f} p90_ms={p90:.3f} ms_per_token={p50 / AR_STEPS:.3f} "
+            f"prefill_ms={prefill_ms:.3f} decode_ms_per_token={(p50 - prefill_ms) / AR_STEPS:.3f} "
+            f"all_ms={[round(x, 3) for x in latencies]} reasoning[:40]={str(out.get('reasoning'))[:40]!r}")
+        short = ARPolicy(model, max_decoding_steps=AR_PROFILE_STEPS, stop_on_eos=False, seed=0)
+        calls = per_token * AR_PROFILE_STEPS + 1 if mode != "bf16" else 0
+        events, wall_ms = profile_cuda(lambda: short.infer(variant_prepared(VLA0_CONFIG, True)),
+                                       f"vla0 AR request ({mode}, {AR_PROFILE_STEPS} tokens)", PROFILE_COUNT_PAD_S)
+        profiled = report_profile(events, f"vla0 AR request ({mode}, {AR_PROFILE_STEPS} tokens)", wall_ms,
+                                  AR_PROFILE_STEPS)
+        numbers[mode]["profile"] = {"tokens": AR_PROFILE_STEPS, "dequant_kernels": profiled, "dequant_calls": calls}
+        if not PROFILE_KEPT_SHARE * calls <= profiled <= calls:
+            raise AssertionError(f"vla0 {mode}: the profile holds {profiled} dequant kernels for {calls} calls")
+    model.quantize_(None)
+    with flash_masks() as seen:
+        check_ar_kernels_against_plain(model, train_config.model, device,
+                                       request=variant_prepared(VLA0_CONFIG, True))
+    check_case_masks(seen, {VLA0_FORCED_CASE: cases[VLA0_FORCED_CASE]}, "vla0 teacher-forced check")
+    numbers["launches"] = launches
+    del model
+    release()
+    return numbers
+
+
+def lora_checksums(model, names) -> dict:
+    """An int64 sum of each named parameter's bits (a change of any bit
+    changes it with near certainty)."""
+    import torch
+
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        sums = [params[n].detach().reshape(-1).view(torch.int16 if params[n].element_size() == 2 else torch.int32)
+                .to(torch.int64).sum() for n in names]
+        return dict(zip(names, torch.stack(sums).cpu().tolist(), strict=True)) if sums else {}
+
+
+def run_lora_training(device) -> dict:
+    """Phase 15.4: LoRA training at full width (``lap`` with gemma_2b_lora and
+    gemma_300m_lora, float32 parameters, AdamW, EMA) through the trainer on
+    the fake loader's first batch, LORA_TRAIN_STEPS steps, no checkpoint."""
+    import torch
+
+    from lap_tpu_torch.models import convert
+    from lap_tpu_torch.ops import flash_attention as fa
+    from lap_tpu_torch.training import train as port_train
+
+    config = lora_train_config()
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = port_train.build_trainer(config, device=device)
+    state, model = trainer.state, trainer.model
+    names = [n for n, _ in model.named_parameters()]
+    trainable = set(state.trainable)
+    frozen = [n for n in names if n not in trainable]
+    lora_names = [n for n in names if "lora" in n]
+    by_kind = {"lora": 0, "img": 0, "other": 0}
+    for n in state.trainable:
+        by_kind["lora" if "lora" in n else "img" if n.startswith("img.") else "other"] += 1
+    sizes = {k: sum(dict(model.named_parameters())[n].numel() for n in state.trainable
+                    if ("lora" if "lora" in n else "img" if n.startswith("img.") else "other") == k) for k in by_kind}
+    opt_elems = sum(t.numel() for ts in state.opt_state.buffers().values() for t in ts)
+    numbers = {"params": sum(p.numel() for p in model.parameters()), "trainable_tensors": by_kind,
+               "trainable_elems": sizes, "frozen_tensors": len(frozen), "optimizer_state_elems": opt_elems,
+               "ema_tensors": len(state.ema_params or {})}
+    if not lora_names or any("lora" in n for n in frozen) or any(
+            n.startswith("llm.") and "lora" not in n for n in trainable):
+        raise AssertionError("lora: the freeze filter left an llm leaf trainable or froze an adapter")
+    log(f"lora: built the LoRA trainer in {time.monotonic() - t0:.1f} s: {numbers['params']} params, trainable "
+        f"tensors {by_kind} ({sizes} elements: every llm leaf but the adapters is frozen, JAX's rule leaves the "
+        f"image encoder and the action projections trainable), {len(frozen)} frozen; optimizer state "
+        f"{opt_elems} elements over the trainable leaves only; EMA over {numbers['ema_tensors']} tensors")
+    batch = lora_train_batch(device)
+    actions = batch[1]
+    gen = torch.Generator(device=device).manual_seed(9)
+    noise = torch.randn(actions.shape, generator=gen, device=device)
+    time_ = torch.rand((actions.shape[0],), generator=gen, device=device) * 0.999 + 0.001
+
+    def fixed_loss() -> float:
+        with torch.no_grad():
+            return model.compute_loss(*batch, train=False, noise=noise, time=time_)[0].item()
+
+    loss_before = fixed_loss()
+    frozen_before = lora_checksums(model, frozen)
+    lora_before = lora_checksums(model, lora_names)
+
+    def counts():
+        return (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv, fa.launches_bwd_delta, fa.launches_bwd_group_sum)
+
+    trainer.run(batch, 1)  # the first step allocates the gradients and moments
+    cases = {LORA_TRAIN_CASE: lora_training_mask(device)}
+    reset_launch_counters()
+    records, per_step = [], []
+    with flash_masks() as seen:
+        for _ in range(LORA_TRAIN_STEPS - 1):
+            before = counts()
+            records += trainer.run(batch, 1)
+            per_step.append(tuple(a - b for a, b in zip(counts(), before)))
+    check_case_masks(seen, cases, "lora training")
+    del seen
+    launches = dict(zip(("fwd", "dq", "dkv", "delta", "group_sum"), counts(), strict=True))
+    depth = len(model.llm.layers)
+    expected = (2 * depth, depth, depth, depth, depth)
+    if any(c != expected for c in per_step):
+        raise AssertionError(f"lora: expected {expected} launches a step, got {per_step}")
+    loss_after = fixed_loss()
+    frozen_after = lora_checksums(model, frozen)
+    lora_after = lora_checksums(model, lora_names)
+    moved = sum(lora_after[n] != lora_before[n] for n in lora_names)
+    changed_frozen = [n for n in frozen if frozen_after[n] != frozen_before[n]]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = [r["step_ms"] for r in records]
+    numbers.update(loss_fixed_before=loss_before, loss_fixed_after=loss_after, lora_moved=[moved, len(lora_names)],
+                   frozen_changed=len(changed_frozen), peak_mem_gib=peak_gib, step_ms=step_ms,
+                   step_ms_median=statistics.median(step_ms), launches_per_step=list(expected),
+                   losses=[r["loss"] for r in records], launches=launches,
+                   jax_paths=len({convert.jax_path(n) for n in names}))
+    log(f"lora: {LORA_TRAIN_STEPS} steps at batch {TRAIN_BATCH} (float32 params, bf16 activations): launches a step "
+        f"(fwd, dq, dkv, delta, group_sum) {per_step[0]}; step_ms={[round(x, 1) for x in step_ms]} "
+        f"(median {numbers['step_ms_median']:.1f}); loss at fixed noise and time {loss_before:.6f} -> {loss_after:.6f}; "
+        f"adapters moved {moved} of {len(lora_names)}; frozen leaves changed {len(changed_frozen)} of {len(frozen)}; "
+        f"peak_mem_gib={peak_gib:.2f}")
+    if changed_frozen or moved != len(lora_names) or not loss_after < loss_before:
+        raise AssertionError(f"lora: frozen changed {changed_frozen[:3]}, adapters moved {moved}/{len(lora_names)}, "
+                             f"loss {loss_before} -> {loss_after}")
+    profile_one_step(trainer, batch)  # device time by kernel family, against the full step's (phase 11)
+    del trainer, state, model, batch
+    release()
+    return numbers
+
+
+def run_variants(device) -> dict:
+    """Phase 15 (module header): FAST, pi0, vla0 serving on the LAP-3B tree,
+    then LoRA training; returns the numbers and the phase's launches."""
+    import torch
+
+    from lap_tpu_torch.training.config import get_config
+
+    reset_launch_counters()
+    t0 = time.monotonic()
+    config = get_config(FAST_CONFIG).model
+    base = config.create_module(device=device, init_seed=0)
+    torch.cuda.synchronize()
+    log(f"variants: built LAP-3B for {FAST_CONFIG} ({sum(p.numel() for p in base.parameters())} params, bf16, "
+        f"max_token_len {config.max_token_len}) in {time.monotonic() - t0:.1f} s")
+    totals = dict(fwd=0, dq=0, dkv=0, delta=0, group_sum=0, int8=0, int4=0)
+    numbers = {}
+    phases = (("fast", lambda: run_fast_serving(base, device)), ("pi0", lambda: run_pi0_serving(base, device)),
+              ("vla0", lambda: run_vla0_serving(base, device)), ("lora", lambda: run_lora_training(device)))
+    for name, fn in phases:
+        if name == "lora":
+            del base
+            release()
+        t1 = time.monotonic()
+        numbers[name] = fn()
+        numbers[name]["phase_s"] = time.monotonic() - t1
+        for key, n in numbers[name]["launches"].items():
+            totals[key] += n
+    numbers["launches"] = totals
+    log(f"variants: phase 15 took {time.monotonic() - t0:.1f} s; main-path launches {totals}")
+    print(json.dumps({"variants": numbers}), flush=True)
+    return totals
+
+
+def time_variant_flash_forward(device) -> dict:
+    """The flash forward at phase 15's new prefills (the FAST flow prefix,
+    B=1 T=S=732, and the vla0 AR prefill, B=1 T=902 S=966) by device time,
+    beside its plain version, SDPA's device time (a yardstick) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=device).manual_seed(19)
+    cases = {n: m for n, _, m in variant_kernel_cases(device)}
+    out = {}
+    for name in (FAST_FLOW_CASE, VLA0_AR_CASE):
+        mask = cases[name]
+        t, s = mask.shape[1:]
+        q = torch.randn((1, t, 8, 256), generator=g, device=device).to(torch.bfloat16)
+        k, v = (torch.randn((1, s, 1, 256), generator=g, device=device).to(torch.bfloat16) for _ in range(2))
+        device_ms = device_ms_per_call([lambda: fa.flash_attention_forward(q, k, v, mask)], iters=50)
+        plain_ms = time_cuda(lambda: fa.flash_attention_plain(q, k, v, mask), iters=10)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        library_ms = device_ms_per_call(
+            [lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)], iters=50)
+        bound_ms, bound_by, flops_ms, bytes_ms = flash_forward_bound(mask, q, k, v)
+        out[name] = dict(device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        log(f"timing flash_attention_fwd {name} B1 T{t} S{s} N8 K1 H256: device_ms={device_ms:.5f} "
+            f"plain_ms={plain_ms:.5f} library_ms(sdpa, device time)={library_ms:.5f} bound_ms={bound_ms:.5f} "
+            f"({bound_by}: flops -> {flops_ms:.5f} ms, bytes -> {bytes_ms:.5f} ms; {int(mask.sum())} pairs)")
+    return out
+
+
 def main() -> int:
 
     if not (REPO / "lap_tpu_torch" / "csrc").is_dir():
@@ -2985,6 +3680,8 @@ def main() -> int:
     g3_bwd_timing = time_flash_backward(device, TRAIN_BATCH, gemma3=True)
     print(json.dumps({"gemma3": {**g3, "training": g3_train}}), flush=True)
     g3_flash, g3_int8, g3_int4 = (g3["launches"][k] for k in ("flash", "int8", "int4"))
+    variants = run_variants(device)
+    variant_fwd_timing = time_variant_flash_forward(device)
 
     csrc = "lap_tpu_torch/csrc/"
     kernels = [
@@ -2992,8 +3689,10 @@ def main() -> int:
             name="flash_attention_fwd", route="cuda", source=csrc + fa.SOURCE,
             replaces="lap_tpu/ops/flash_attention.py:53",
             launches=flow_launches + sum(c[0] for c in quant_flow.values()) + sum(c[0] for c in ar.values())
-            + stack["flash"] + train_launches["fwd"] + entry["fwd"] + g3_flash + g3_train["launches"]["fwd"],
+            + stack["flash"] + train_launches["fwd"] + entry["fwd"] + g3_flash + g3_train["launches"]["fwd"]
+            + variants["fwd"],
             launches_gemma3_serving=g3_flash, launches_gemma3_training=g3_train["launches"]["fwd"],
+            launches_variants=variants["fwd"], variant_prefills=variant_fwd_timing,
             launches_flow=flow_launches, launches_quant_flow=sum(c[0] for c in quant_flow.values()),
             launches_ar=sum(c[0] for c in ar.values()), launches_serving_stack=stack["flash"],
             launches_training=train_launches["fwd"], launches_train_entry_points=entry["fwd"],
@@ -3007,7 +3706,8 @@ def main() -> int:
         dict(
             name="flash_attention_bwd_dq", route="cuda", source=csrc + fa.BWD_SOURCE,
             replaces="lap_tpu/ops/flash_attention.py:173",
-            launches=train_launches["dq"] + entry["dq"] + g3_train["launches"]["dq"],
+            launches=train_launches["dq"] + entry["dq"] + g3_train["launches"]["dq"] + variants["dq"],
+            launches_variants=variants["dq"],
             launches_training=train_launches["dq"], launches_train_entry_points=entry["dq"],
             launches_gemma3_training=g3_train["launches"]["dq"],
             gemma3_training_shape={k: v for k, v in g3_bwd_timing["dq"].items() if k != "batch"},
@@ -3016,7 +3716,8 @@ def main() -> int:
         dict(
             name="flash_attention_bwd_dkv", route="cuda", source=csrc + fa.BWD_SOURCE,
             replaces="lap_tpu/ops/flash_attention.py:215",
-            launches=train_launches["dkv"] + entry["dkv"] + g3_train["launches"]["dkv"],
+            launches=train_launches["dkv"] + entry["dkv"] + g3_train["launches"]["dkv"] + variants["dkv"],
+            launches_variants=variants["dkv"],
             launches_training=train_launches["dkv"], launches_train_entry_points=entry["dkv"],
             launches_gemma3_training=g3_train["launches"]["dkv"],
             gemma3_training_shape={k: v for k, v in g3_bwd_timing["dkv"].items() if k != "batch"},
@@ -3025,7 +3726,8 @@ def main() -> int:
         dict(
             name="flash_attention_bwd_delta", route="cuda", source=csrc + fa.BWD_SOURCE,
             replaces="lap_tpu/ops/flash_attention.py:270",
-            launches=train_launches["delta"] + entry["delta"] + g3_train["launches"]["delta"],
+            launches=train_launches["delta"] + entry["delta"] + g3_train["launches"]["delta"] + variants["delta"],
+            launches_variants=variants["delta"],
             launches_training=train_launches["delta"], launches_train_entry_points=entry["delta"],
             launches_gemma3_training=g3_train["launches"]["delta"],
             gemma3_training_shape={k: v for k, v in g3_bwd_timing["delta"].items() if k != "batch"},
@@ -3034,7 +3736,8 @@ def main() -> int:
         dict(
             name="flash_attention_bwd_group_sum", route="cuda", source=csrc + fa.BWD_SOURCE,
             replaces="lap_tpu/ops/flash_attention.py:340",
-            launches=train_launches["group_sum"] + entry["group_sum"] + g3_train["launches"]["group_sum"],
+            launches=train_launches["group_sum"] + entry["group_sum"] + g3_train["launches"]["group_sum"] + variants["group_sum"],
+            launches_variants=variants["group_sum"],
             launches_training=train_launches["group_sum"], launches_train_entry_points=entry["group_sum"],
             launches_gemma3_training=g3_train["launches"]["group_sum"],
             gemma3_training_shape={k: v for k, v in g3_bwd_timing["group_sum"].items() if k != "batch"},
@@ -3050,8 +3753,8 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=csrc + (i8.SOURCE, i4.SOURCE)[index], replaces=replaces,
             launches=quant_flow[name[:4]][1 + index] + ar[name[:4]][1 + index] + stack.get(name[:4], 0)
-            + entry.get(name[:4], 0) + (g3_int8, g3_int4)[index],
-            launches_gemma3=(g3_int8, g3_int4)[index],
+            + entry.get(name[:4], 0) + (g3_int8, g3_int4)[index] + variants[name[:4]],
+            launches_gemma3=(g3_int8, g3_int4)[index], launches_variants=variants[name[:4]],
             gemma3={f"{shape}_M{m}": t for (shape, m), t in quant_timing[name].items() if shape.startswith("g3_")},
             launches_train_entry_points=entry.get(name[:4], 0),
             launches_quant_flow=quant_flow[name[:4]][1 + index], launches_ar=ar[name[:4]][1 + index],

@@ -8,11 +8,12 @@
 //   - bilinear resize-with-pad over uint8 HWC images (multithreaded batch)
 //   - 180-degree rotation (wrist-camera convention)
 //   - sentencepiece-style unigram Viterbi encoding over a piece vocabulary
+//   - greedy lowest-rank-first BPE over integer symbol streams (FAST codec)
 //
 // Build: g++ -O3 -march=native -shared -fPIC -o liblap_native.so lap_native.cpp -lpthread
 //
 // The port's copy of csrc/lap_native.cpp (lap_tpu_torch/native.py builds and
-// binds it); the bpe_* entry points wait for the port of the FAST tokenizer.
+// binds it, the bpe_* entry points as NativeIntBPE).
 
 #include <algorithm>
 #include <cmath>

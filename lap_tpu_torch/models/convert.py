@@ -13,6 +13,11 @@ numpy arrays. Its traps, each handled here:
   [N, H, D] (out);
 - the ``nn.Conv`` patchify kernel is HWIO, torch's OIHW;
 - the adaRMS modulation lives under ``<norm>_1/Dense_0``;
+- LoRA adapters sit beside their weight: ``<einsum>/lora_a``,
+  ``<einsum>/lora_b`` and ``mlp/{gating,linear}_lora_{a,b}``; the pi0
+  branch adds the ``state_proj``, ``action_time_mlp_in`` and
+  ``action_time_mlp_out`` Dense layers and plain ``scale`` norms on expert
+  1; the VLM-only model has no ``_1`` leaf and no action projection;
 - Gemma3 (``LAPGemma3``) adds ``attn/q_rmsnorm`` and ``attn/k_rmsnorm``
   (shared by the experts), ``post_attention_norm`` and ``post_ffw_norm``
   (expert 0 only), ``img/mm_soft_embedding_norm`` and a bias-free
@@ -58,6 +63,10 @@ _EXPERT = re.compile(r"^(?P<name>[a-z_]+?)(?:_(?P<expert>\d+))?$")
 _UNSCANNED_LAYER = re.compile(r"^layers_(\d+)$")
 _QUANT_LEAF = re.compile(r"^(?P<prefix>(gating_|linear_|decode_)?)(?P<leaf>w_i8|w_i4|scale)$")
 _GEMMA_EINSUMS = ("q_einsum", "kv_einsum", "qkv_einsum", "attn_vec_einsum")
+_EINSUM_LEAVES = ("w", "lora_a", "lora_b")
+_MLP_LEAVES = ("gating_einsum", "linear", "gating_lora_a", "gating_lora_b", "linear_lora_a", "linear_lora_b")
+_DENSE_TOPS = ("action_in_proj", "action_out_proj", "time_mlp_in", "time_mlp_out", "state_proj",
+               "action_time_mlp_in", "action_time_mlp_out")
 _QK_NORMS = ("q_rmsnorm", "k_rmsnorm")  # Gemma3, one for all experts
 _POST_NORMS = ("post_attention_norm", "post_ffw_norm")  # Gemma3, expert 0 only
 
@@ -105,15 +114,15 @@ def _llm_layer(parts: list[str], value: np.ndarray, i: int) -> tuple[str, np.nda
         if parts[1] in _QK_NORMS and parts[2:] == ["scale"]:
             return f"llm.layers.{i}.attn.{parts[1]}.scale", value
         name, expert = _split_expert(parts[1])
-        if name not in _GEMMA_EINSUMS or parts[2:] != ["w"]:
+        if name not in _GEMMA_EINSUMS or len(parts) != 3 or parts[2] not in _EINSUM_LEAVES:
             raise KeyError("/".join(parts))
-        return f"llm.layers.{i}.attn.{name}.{expert}.w", value
+        return f"llm.layers.{i}.attn.{name}.{expert}.{parts[2]}", value
     if parts[0] in _POST_NORMS and parts[1:] == ["scale"]:
         return f"llm.layers.{i}.{parts[0]}.scale", value
     name, expert = _split_expert(parts[0])
     if name in ("pre_attention_norm", "pre_ffw_norm"):
         return _norm(f"llm.layers.{i}.{name}.{expert}", parts[1:], value)
-    if name == "mlp" and len(parts) == 2 and parts[1] in ("gating_einsum", "linear"):
+    if name == "mlp" and len(parts) == 2 and parts[1] in _MLP_LEAVES:
         return f"llm.layers.{i}.mlp.{expert}.{parts[1]}", value
     raise KeyError("/".join(parts))
 
@@ -143,7 +152,7 @@ def _siglip_layer(parts: list[str], value: np.ndarray, i: int) -> tuple[str, np.
 def _translate(key: str, value: np.ndarray) -> list[tuple[str, np.ndarray]]:
     parts = key.split("/")
     top = parts[0]
-    if top in ("action_in_proj", "action_out_proj", "time_mlp_in", "time_mlp_out"):
+    if top in _DENSE_TOPS:
         return [_dense(top, parts[1], value)]
     if top == "llm":
         if parts[1] == "embedder" and parts[2:] == ["input_embedding"]:
@@ -314,7 +323,6 @@ def read_params_npz(path) -> dict[str, np.ndarray]:
 # The inverse: port state dict -> JAX flat params tree
 # ---------------------------------------------------------------------------
 
-_DENSE_TOPS = ("action_in_proj", "action_out_proj", "time_mlp_in", "time_mlp_out")
 _NORM_LEAVES = {"scale": "scale", "modulation_weight": "Dense_0/kernel", "modulation_bias": "Dense_0/bias"}
 
 
@@ -350,8 +358,8 @@ def _jax_leaf(name: str, heads: int):
             return f"llm/final_norm{_suffix(parts[2])}/{leaf}", None, _transpose if "kernel" in leaf else _keep
         if parts[1] == "layers":
             i, rest = int(parts[2]), parts[3:]
-            if rest[0] == "attn" and len(rest) == 4 and rest[3] == "w":
-                return f"llm/layers/attn/{rest[1]}{_suffix(rest[2])}/w", i, _keep
+            if rest[0] == "attn" and len(rest) == 4 and rest[3] in _EINSUM_LEAVES:
+                return f"llm/layers/attn/{rest[1]}{_suffix(rest[2])}/{rest[3]}", i, _keep
             if rest[0] == "attn" and rest[1] in _QK_NORMS and rest[2:] == ["scale"]:
                 return f"llm/layers/attn/{rest[1]}/scale", i, _keep
             if rest[0] in _POST_NORMS and rest[1:] == ["scale"]:
@@ -396,6 +404,12 @@ def _jax_leaf(name: str, heads: int):
                 path, fn = _dense_leaf(f"{block}/MlpBlock_0/Dense_{rest[0][-1]}", rest[1])
                 return path, i, fn
     raise KeyError(name)
+
+
+def jax_path(name: str) -> str:
+    """The JAX params path (``llm/layers/attn/q_einsum_1/w``) of a port
+    parameter name (``llm.layers.3.attn.q_einsum.1.w``)."""
+    return _jax_leaf(name, 1)[0]
 
 
 def to_jax_params(named: dict[str, torch.Tensor], *, siglip_heads: int) -> dict[str, torch.Tensor]:

@@ -22,7 +22,13 @@ calls at the expert-0 boundary, the second with detached expert-0 keys and
 values (forward values unchanged); ``remat_policy="nothing_saveable"``
 recomputes each block in the backward pass (``torch.utils.checkpoint``),
 ``"none"`` keeps its activations. Parameters may be float32 under bf16
-activations: every layer casts its weights at use. Dropout is not ported.
+activations: every layer casts its weights at use. Dropout is not ported (no
+config reaches it, and remat replays no RNG state).
+
+LoRA: a config's ``lora_configs`` (``"attn"``, ``"ffn"``) adapts that
+expert's attention einsums and MLP (``lora.py``); the ``*_lora`` variants
+adapt both, with rank = alpha (16 for gemma_2b, 32 for gemma_300m, 4 for
+dummy).
 
 Parameters keep the JAX checkpoint shapes; per-expert modules sit in
 ``nn.ModuleList``s indexed by expert, layers in ``layers``.
@@ -38,7 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from lap_tpu_torch.models.lora import QUANT_MAX_ROWS, Einsum, FeedForward, QuantWeights, quant_matmul
+from lap_tpu_torch.models.lora import QUANT_MAX_ROWS, Einsum, FeedForward, LoRAConfig, QuantWeights, quant_matmul
 from lap_tpu_torch.ops.attention import attention
 from lap_tpu_torch.ops.rope import apply_rope
 
@@ -54,6 +60,7 @@ class Config:
     num_heads: int
     num_kv_heads: int
     head_dim: int
+    lora_configs: dict[str, LoRAConfig] = dataclasses.field(default_factory=dict)
 
 
 _VARIANTS = {
@@ -63,10 +70,19 @@ _VARIANTS = {
 }
 
 
+# The LoRA variants: (base variant, rank = alpha), adapting attention and MLP.
+_LORA_VARIANTS = {"gemma_2b_lora": ("gemma_2b", 16), "gemma_300m_lora": ("gemma_300m", 32),
+                  "dummy_lora": ("dummy", 4)}
+
+
 def get_config(variant: str) -> Config:
-    if variant not in _VARIANTS:
-        raise ValueError(f"Unknown gemma variant: {variant}")
-    return Config(**_VARIANTS[variant])
+    if variant in _VARIANTS:
+        return Config(**_VARIANTS[variant])
+    if variant in _LORA_VARIANTS:
+        base, rank = _LORA_VARIANTS[variant]
+        cfg = LoRAConfig(rank=rank, alpha=float(rank))
+        return Config(**_VARIANTS[base], lora_configs={"attn": cfg, "ffn": cfg})
+    raise ValueError(f"Unknown gemma variant: {variant}")
 
 
 class RMSNorm(nn.Module):
@@ -197,12 +213,16 @@ class Attention(nn.Module):
         n, k, h = cfg0.num_heads, cfg0.num_kv_heads, cfg0.head_dim
         self.fused_qkv = k == n
         ne, qkv, q_eqn, vec = len(configs), self.QKV_EQN, self.Q_EQN, self.ATTN_VEC_EQN
+
+        def einsum(i, shape, eqn, fan_in):
+            return Einsum(shape, eqn, fan_in, lora_config=configs[i].lora_configs.get("attn"), **kw)
+
         if self.fused_qkv:
-            self.qkv_einsum = _expert_list(lambda i: Einsum((3, n, configs[i].width, h), qkv, configs[i].width, **kw), ne)
+            self.qkv_einsum = _expert_list(lambda i: einsum(i, (3, n, configs[i].width, h), qkv, configs[i].width), ne)
         else:
-            self.q_einsum = _expert_list(lambda i: Einsum((n, configs[i].width, h), q_eqn, configs[i].width, **kw), ne)
-            self.kv_einsum = _expert_list(lambda i: Einsum((2, k, configs[i].width, h), qkv, configs[i].width, **kw), ne)
-        self.attn_vec_einsum = _expert_list(lambda i: Einsum((n, h, configs[i].width), vec, n * h, **kw), ne)
+            self.q_einsum = _expert_list(lambda i: einsum(i, (n, configs[i].width, h), q_eqn, configs[i].width), ne)
+            self.kv_einsum = _expert_list(lambda i: einsum(i, (2, k, configs[i].width, h), qkv, configs[i].width), ne)
+        self.attn_vec_einsum = _expert_list(lambda i: einsum(i, (n, h, configs[i].width), vec, n * h), ne)
 
     def forward(self, xs, positions, attn_mask, kv_cache, want_cache: bool = True):
         """Three call shapes: a fresh joint pass over the live experts
@@ -309,7 +329,9 @@ class Block(nn.Module):
         self.attn = Attention(configs, stop_action_to_vlm_grad=stop_action_to_vlm_grad,
                               cache_dtype=cache_dtype, attn_impl=attn_impl, **kw)
         self.pre_ffw_norm = _expert_list(lambda i: RMSNorm(configs[i].width, adaptive=use_adarms[i], **kw), n)
-        self.mlp = _expert_list(lambda i: FeedForward(configs[i].width, configs[i].mlp_dim, **kw), n)
+        self.mlp = _expert_list(
+            lambda i: FeedForward(configs[i].width, configs[i].mlp_dim, lora_config=configs[i].lora_configs.get("ffn"),
+                                  **kw), n)
 
     def forward(self, xs, kv_cache, positions, attn_mask, adarms_cond, want_cache: bool = True):
         pre, gates = [], []

@@ -18,6 +18,12 @@ from the JAX module:
   both experts' residuals as in Gemma);
 - the transposed gating layout ``gating_einsum`` [2, hidden, width]
   (JAX's ``"...F,GHF->...GH"``), quantized as [width, 2 * hidden];
+- LoRA through a config's ``lora_configs`` (no named variant sets it, as in
+  JAX): the attention einsums as in ``gemma.py``, and the MLP's
+  ``gating_lora_a`` [2, F, r], ``gating_lora_b`` [2, r, H],
+  ``linear_lora_a`` [H, r], ``linear_lora_b`` [r, F]; an adapted MLP
+  recomputes its hidden activation with the adapted gates and projects that
+  (JAX's order of operations);
 - a 262,144-row vocabulary. ``Module.embed`` clamps token ids into the
   table, as JAX's jitted gather does: ``GEMMA3_END_IMAGE_TOKEN`` (262144) is
   one past the table and every Gemma3 prompt holds it, so it reads row
@@ -41,7 +47,15 @@ from torch import nn
 
 from lap_tpu_torch.models import gemma as _gemma
 from lap_tpu_torch.models.gemma import RMSNorm, _expert_list, _gated_residual
-from lap_tpu_torch.models.lora import QUANT_MAX_ROWS, QuantWeights, _rows, quant_matmul
+from lap_tpu_torch.models.lora import (
+    QUANT_MAX_ROWS,
+    LoRAConfig,
+    QuantWeights,
+    _add_mlp_lora,
+    _rows,
+    mlp_lora_init_,
+    quant_matmul,
+)
 
 GEMMA3_VOCAB_SIZE = 262_144
 
@@ -62,6 +76,7 @@ class Config:
     use_post_attn_norm: bool = True
     use_post_ffw_norm: bool = True
     vocab_size: int = GEMMA3_VOCAB_SIZE
+    lora_configs: dict[str, LoRAConfig] = dataclasses.field(default_factory=dict)
 
     @property
     def depth(self) -> int:
@@ -131,10 +146,16 @@ class FeedForward(QuantWeights):
     """GeGLU MLP with Gemma3's transposed gating: ``gating_einsum`` [2, H, F]
     (F = width, H = hidden), ``linear`` [H, F]."""
 
-    def __init__(self, features: int, hidden_dim: int, *, device=None, dtype=None):
+    def __init__(self, features: int, hidden_dim: int, *, lora_config: LoRAConfig | None = None,
+                 device=None, dtype=None):
         super().__init__()
         self.gating_einsum = nn.Parameter(torch.empty((2, hidden_dim, features), device=device, dtype=dtype))
         self.linear = nn.Parameter(torch.empty((hidden_dim, features), device=device, dtype=dtype))
+        self.lora_config = lora_config
+        if lora_config is not None:
+            r = lora_config.rank
+            _add_mlp_lora(self, (2, features, r), (2, r, hidden_dim), hidden_dim, features, device=device,
+                          dtype=dtype)
 
     def quant_targets(self):
         # [2, H, F] -> [F, 2H]: contraction-major, both projections in one matmul.
@@ -150,15 +171,26 @@ class FeedForward(QuantWeights):
         else:
             w = self.gating_einsum.to(x.dtype)
             gate_pre, up = x @ w[0].T, x @ w[1].T
+        cfg = self.lora_config
+        if cfg is not None:
+            # JAX's order: the adapted gates give a second hidden activation,
+            # which alone reaches the output.
+            a, b = self.gating_lora_a.to(x.dtype), self.gating_lora_b.to(x.dtype)
+            gate_pre = gate_pre + cfg.scaling_value * ((x @ a[0]) @ b[0])
+            up = up + cfg.scaling_value * ((x @ a[1]) @ b[1])
         act = F.gelu(gate_pre, approximate="tanh") * up
         linear = self.quantized("linear_")
         if linear is not None and rows_ok:
             return quant_matmul(act, *linear, (*x.shape[:-1], self.linear.shape[-1]))
-        return act @ self.linear.to(x.dtype)
+        out = act @ self.linear.to(x.dtype)
+        if cfg is not None:
+            out = out + cfg.scaling_value * ((act @ self.linear_lora_a.to(x.dtype)) @ self.linear_lora_b.to(x.dtype))
+        return out
 
     def random_init_(self, gen: torch.Generator) -> None:
         self.gating_einsum.normal_(0.0, self.gating_einsum.shape[2] ** -0.5, generator=gen)
         self.linear.normal_(0.0, self.linear.shape[0] ** -0.5, generator=gen)
+        mlp_lora_init_(self, gen)
 
 
 def effective_mask(attn_mask, positions, kv_len: int, *, is_global: bool, window: int, image_mask=None):
@@ -224,7 +256,9 @@ class Block(nn.Module):
         self.attn = Attention(configs, stop_action_to_vlm_grad=stop_action_to_vlm_grad,
                               cache_dtype=cache_dtype, attn_impl=attn_impl, **kw)
         self.pre_ffw_norm = _expert_list(lambda i: RMSNorm(configs[i].width, adaptive=use_adarms[i], **kw), n)
-        self.mlp = _expert_list(lambda i: FeedForward(configs[i].width, configs[i].hidden_dim, **kw), n)
+        self.mlp = _expert_list(
+            lambda i: FeedForward(configs[i].width, configs[i].hidden_dim,
+                                  lora_config=configs[i].lora_configs.get("ffn"), **kw), n)
         # Expert 0 only, plain (no adaRMS), as in JAX.
         self.post_attention_norm = RMSNorm(cfg0.width, **kw) if cfg0.use_post_attn_norm else None
         self.post_ffw_norm = RMSNorm(cfg0.width, **kw) if cfg0.use_post_ffw_norm else None

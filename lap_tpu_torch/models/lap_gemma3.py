@@ -31,8 +31,8 @@ Held from the reference, as it is:
   not see their own keys on local layers once the prompt has a window's
   worth of padding.
 
-Only the pi0.5 (adaRMS) branch with the action expert is ported, as for LAP
-(ROADMAP queue A item 20).
+The pi0 branch (``pi05=False``) and the VLM-only model
+(``enable_action_training=False``) are ``LAP``'s, as in JAX.
 """
 
 from __future__ import annotations
@@ -100,11 +100,11 @@ class LAPGemma3(LAP):
         if "gemma3" not in config.paligemma_variant or "gemma3" not in config.action_expert_variant:
             raise ValueError("LAPGemma3 requires gemma3 variants for both experts")
         dtype = config.torch_dtype
-        pali = _gemma3.get_config(config.paligemma_variant)
-        action = _gemma3.get_config(config.action_expert_variant)
+        experts, adarms, width = self._experts(config, _gemma3.get_config)
+        pali = experts[0]
         self.llm = _gemma3.Module(
-            [pali, action],
-            use_adarms=[False, True],
+            experts,
+            use_adarms=adarms,
             embed_dtype=dtype,
             cache_dtype=dtype,
             attn_impl=config.attn_impl,
@@ -126,7 +126,7 @@ class LAPGemma3(LAP):
             compute_dtype=dtype,
             **kw,
         )
-        return action.width
+        return width
 
     # ------------------------------------------------------------------
 
@@ -176,7 +176,8 @@ class LAPGemma3(LAP):
 
     def _embed_prefix_for_loss(self, obs: CoTObservation, suffix: dict):
         tokens, mask, ar, extra = self._prefix_inputs(obs)
-        extra["image_mask"] = F.pad(extra["image_mask"], (0, suffix["suffix_tokens"].shape[1]))
+        if suffix is not None:
+            extra["image_mask"] = F.pad(extra["image_mask"], (0, suffix["suffix_tokens"].shape[1]))
         return tokens, mask, ar, extra
 
     @staticmethod

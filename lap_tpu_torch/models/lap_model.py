@@ -2,7 +2,19 @@
 ``lap_tpu/models/lap_model.py``).
 
 SigLIP + a two-expert Gemma (the VLM and the action expert) with pi0.5
-adaRMS time conditioning. Ported: inference by flow matching
+adaRMS time conditioning (``pi05``), or the pi0 branch (``pi05=False``): a
+state token from ``state_proj`` that opens its own AR segment before the
+action tokens, ``[action tokens, time embedding]`` through
+``action_time_mlp_in`` (swish) and ``action_time_mlp_out`` (none), and no
+adaRMS, so both experts take the plain RMSNorm. With
+``enable_action_training=False`` (the VLM-only, vla0 model) there is one
+expert and no action projection: the loss is the language loss alone, AR
+decode serves it, and ``sample_actions`` refuses it (there is no action
+expert to call); ``pi05`` changes nothing there, as JAX's one-expert module
+never gets a conditioning vector. ``use_bimanual`` adds the right wrist
+camera; ``scan_layers`` and ``scan_unroll`` are accepted for JAX's command
+lines and change nothing (the layers are always per layer). Ported:
+inference by flow matching
 (``embed_prefix``, ``embed_suffix``, ``sample_actions``: prefix prefill, then
 Euler steps of the action expert against the KV cache), autoregressive
 language-action decode (``sample_tokens``: the prefix right-aligned by
@@ -84,6 +96,7 @@ class LAPConfig:
 
     aug_wrist_image: bool = True
     enable_image_augmentation: bool = True
+    use_bimanual: bool = False
 
     enable_action_training: bool = False
     enable_langact_training: bool = True
@@ -101,8 +114,12 @@ class LAPConfig:
 
     # Attention implementation ("auto" / "flash" / "xla").
     attn_impl: str = "auto"
+    # JAX's layer-scan knobs: the port's layers are always per layer, so
+    # both are accepted and change no numerics.
+    scan_unroll: int = 1
     # Block rematerialisation in training ("nothing_saveable" / "none").
     remat_policy: str = "nothing_saveable"
+    scan_layers: bool = True
     image_resolution: tuple[int, int] = IMAGE_RESOLUTION
     # Weight-only quantized serving ("int8" / "int4" / None): a model built
     # with random weights quantizes at once; one built empty for a weight
@@ -111,6 +128,8 @@ class LAPConfig:
 
     @property
     def image_keys(self) -> tuple[str, ...]:
+        if self.use_bimanual:
+            return ("base_0_rgb", "left_wrist_0_rgb", "right_wrist_0_rgb")
         return IMAGE_KEYS
 
     @property
@@ -210,7 +229,8 @@ def _dense_promoted(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 class LAP(nn.Module):
-    """Flow-matching action policy on a two-expert Gemma.
+    """Flow-matching action policy on a two-expert Gemma (one expert, the
+    VLM, without ``enable_action_training``).
 
     Parameters are created on ``device`` (``cuda`` unless given) in
     ``param_dtype`` (the config's dtype unless given; training keeps float32
@@ -229,31 +249,43 @@ class LAP(nn.Module):
     def __init__(self, config: LAPConfig, *, device=None, init_seed: int | None = 0,
                  param_dtype: torch.dtype | None = None):
         super().__init__()
-        if not config.enable_action_training:
-            raise ValueError("the flow policy needs enable_action_training=True (the action expert)")
-        if not config.pi05:
-            raise NotImplementedError("only the pi0.5 (adaRMS) branch is ported")
         device = resolve_device(device)
         self.config = config
         with torch.device("meta"):
             kw = dict(dtype=param_dtype or config.torch_dtype)
-            self._action_width = action_width = self._build(config, kw)
-            self.action_in_proj = nn.Linear(config.action_dim, action_width, **kw)
-            self.time_mlp_in = nn.Linear(action_width, action_width, **kw)
-            self.time_mlp_out = nn.Linear(action_width, action_width, **kw)
-            self.action_out_proj = nn.Linear(action_width, config.action_dim, **kw)
+            self._action_width = width = self._build(config, kw)
+            if config.enable_action_training:
+                self.action_in_proj = nn.Linear(config.action_dim, width, **kw)
+                if config.pi05:
+                    self.time_mlp_in = nn.Linear(width, width, **kw)
+                    self.time_mlp_out = nn.Linear(width, width, **kw)
+                else:
+                    self.state_proj = nn.Linear(config.action_dim, width, **kw)
+                    self.action_time_mlp_in = nn.Linear(2 * width, width, **kw)
+                    self.action_time_mlp_out = nn.Linear(width, width, **kw)
+                self.action_out_proj = nn.Linear(width, config.action_dim, **kw)
         self.to_empty(device=device)
         if init_seed is not None:
             random_init_(self, init_seed)
             if config.quant is not None:
                 self.quantize_(config.quant)
 
-    def _build(self, config: LAPConfig, kw: dict) -> int:
+    @staticmethod
+    def _experts(config: LAPConfig, get_config) -> tuple[list, list[bool], int | None]:
+        """The backbone's expert configs, which of them take adaRMS, and the
+        action expert's width (None without one)."""
+        pali = get_config(config.paligemma_variant)
+        if not config.enable_action_training:
+            return [pali], [False], None
+        action = get_config(config.action_expert_variant)
+        return [pali, action], [False, config.pi05], action.width
+
+    def _build(self, config: LAPConfig, kw: dict) -> int | None:
         """Build ``img`` and ``llm`` (on the meta device); returns the action
-        expert's width."""
+        expert's width (None without one)."""
         dtype = config.torch_dtype
-        pali = _gemma.get_config(config.paligemma_variant)
-        action = _gemma.get_config(config.action_expert_variant)
+        experts, adarms, width = self._experts(config, _gemma.get_config)
+        pali = experts[0]
         self.img = _siglip.SigLIP(
             _siglip.get_config(config.siglip_variant, head_dim_out=pali.width),
             image_size=config.image_resolution,
@@ -262,8 +294,8 @@ class LAP(nn.Module):
             **kw,
         )
         self.llm = _gemma.Module(
-            [pali, action],
-            use_adarms=[False, True],
+            experts,
+            use_adarms=adarms,
             embed_dtype=dtype,
             cache_dtype=dtype,
             attn_impl=config.attn_impl,
@@ -271,11 +303,19 @@ class LAP(nn.Module):
             remat_policy=config.remat_policy,
             **kw,
         )
-        return action.width
+        return width
 
     @property
     def device(self) -> torch.device:
-        return self.action_out_proj.weight.device
+        return self.llm.embedder.input_embedding.device
+
+    @property
+    def num_experts(self) -> int:
+        return len(self.llm.configs)
+
+    def _experts_input(self, first):
+        """The backbone's per-expert list with ``first`` for expert 0."""
+        return [first] + [None] * (self.num_experts - 1)
 
     def set_attn_impl(self, impl: str) -> None:
         self.img.set_attn_impl(impl)
@@ -329,18 +369,32 @@ class LAP(nn.Module):
         return (*left_to_right_align(tokens, input_mask, attn_mask), extra)
 
     def embed_suffix(self, obs: CoTObservation, noisy_actions: torch.Tensor, timestep: torch.Tensor):
-        """Action-expert tokens and the adaRMS time conditioning (pi0.5)."""
+        """Action-expert tokens and the adaRMS time conditioning (pi0.5), or
+        the state token and the time-mixed action tokens (pi0, no
+        conditioning): (tokens, input mask, AR flags [S], cond or None)."""
         cfg = self.config
         action_tokens = _dense_promoted(self.action_in_proj, noisy_actions)
         time_emb = posemb_sincos(timestep, self._action_width, min_period=4e-3, max_period=4.0)
-        y = F.silu(_dense_promoted(self.time_mlp_in, time_emb))
-        adarms_cond = F.silu(_dense_promoted(self.time_mlp_out, y))
-        input_mask = torch.ones(action_tokens.shape[:2], dtype=torch.bool, device=action_tokens.device)
         # The first action token starts a new AR segment; the chunk is
         # bidirectional within itself.
-        ar = torch.zeros(cfg.action_horizon, dtype=torch.bool, device=action_tokens.device)
-        ar[0] = True
-        return action_tokens, input_mask, ar, adarms_cond
+        flags = [True] + [False] * (cfg.action_horizon - 1)
+        if cfg.pi05:
+            y = F.silu(_dense_promoted(self.time_mlp_in, time_emb))
+            adarms_cond = F.silu(_dense_promoted(self.time_mlp_out, y))
+            tokens = action_tokens
+        else:
+            # The state token opens its own segment before the actions.
+            state_token = _dense_promoted(self.state_proj, obs.state)[:, None, :]
+            time_tokens = time_emb[:, None, :].expand(-1, cfg.action_horizon, -1)
+            y = torch.cat([action_tokens, time_tokens.to(action_tokens.dtype)], dim=-1)
+            y = F.silu(_dense_promoted(self.action_time_mlp_in, y))
+            expert_tokens = _dense_promoted(self.action_time_mlp_out, y)
+            tokens = torch.cat([state_token.to(expert_tokens.dtype), expert_tokens], dim=1)
+            adarms_cond = None
+            flags = [True] + flags
+        input_mask = torch.ones(tokens.shape[:2], dtype=torch.bool, device=tokens.device)
+        ar = torch.tensor(flags, dtype=torch.bool, device=tokens.device)
+        return tokens, input_mask, ar, adarms_cond
 
     # ------------------------------------------------------------------
     # Training
@@ -383,6 +437,8 @@ class LAP(nn.Module):
     def _build_combined_attention_mask(self, prefix_mask, prefix_ar_mask, prefix_mask_action,
                                        suffix_mask, suffix_ar_mask):
         prefix_attn = make_attn_mask(prefix_mask, prefix_ar_mask)
+        if suffix_mask is None:
+            return prefix_attn
         p, s = prefix_mask.shape[1], suffix_mask.shape[1]
         input_mask = torch.cat([prefix_mask_action, suffix_mask], dim=1)
         ar_mask = torch.cat([torch.zeros_like(prefix_mask_action), suffix_ar_mask], dim=1)
@@ -392,6 +448,8 @@ class LAP(nn.Module):
 
     def _build_combined_positions(self, prefix_mask, prefix_mask_action, suffix_mask):
         prefix_positions = torch.cumsum(prefix_mask, dim=1) - 1
+        if suffix_mask is None:
+            return prefix_positions.to(torch.int32)
         suffix_positions = (
             prefix_mask_action.sum(dim=-1, keepdim=True) + torch.cumsum(suffix_mask, dim=-1) - 1
         )
@@ -513,23 +571,22 @@ class LAP(nn.Module):
         )
         augmented_images = observation.images if return_augmented_images else None
 
-        suffix = self.prepare_suffix(observation, actions, noise=noise, time=time, generator=generator)
+        # The VLM-only model has no suffix: its loss is the language loss.
+        suffix = (self.prepare_suffix(observation, actions, noise=noise, time=time, generator=generator)
+                  if cfg.enable_action_training else None)
         prefix_tokens, prefix_mask, prefix_ar_mask, backbone_kwargs = self._embed_prefix_for_loss(observation, suffix)
-        prefix_mask_action = self._build_prefix_action_mask(prefix_mask, observation)
+        if suffix is None:
+            prefix_mask_action, suffix_mask, suffix_ar_mask = prefix_mask, None, None
+            embedded, conds = [prefix_tokens], [None]
+        else:
+            prefix_mask_action = self._build_prefix_action_mask(prefix_mask, observation)
+            suffix_mask, suffix_ar_mask = suffix["suffix_mask"], suffix["suffix_ar_mask"]
+            embedded, conds = [prefix_tokens, suffix["suffix_tokens"]], [None, suffix["adarms_cond"]]
         combined_mask = self._build_combined_attention_mask(
-            prefix_mask, prefix_ar_mask, prefix_mask_action,
-            suffix["suffix_mask"], suffix["suffix_ar_mask"],
+            prefix_mask, prefix_ar_mask, prefix_mask_action, suffix_mask, suffix_ar_mask
         )
-        positions = self._build_combined_positions(prefix_mask, prefix_mask_action, suffix["suffix_mask"])
-
-        pre_logits, _ = self.llm(
-            [prefix_tokens, suffix["suffix_tokens"]],
-            positions,
-            combined_mask,
-            [None, suffix["adarms_cond"]],
-            want_cache=False,
-            **backbone_kwargs,
-        )
+        positions = self._build_combined_positions(prefix_mask, prefix_mask_action, suffix_mask)
+        pre_logits, _ = self.llm(embedded, positions, combined_mask, conds, want_cache=False, **backbone_kwargs)
 
         def zeros():
             return torch.zeros(batch_size, dtype=torch.float32, device=device)
@@ -593,29 +650,38 @@ class LAP(nn.Module):
                 )
                 lang_per_sample = lang_per_sample + cfg.language_loss_weight * lang_loss
 
-        action_loss, action_metrics = self._compute_action_loss(pre_logits[1], suffix["u_t"])
-        action_sample_mask = torch.ones(batch_size, dtype=torch.bool, device=device)
-        if vqa_mask is not None:
-            action_sample_mask = action_sample_mask & ~vqa_mask
-        if pred_mask is not None:
-            action_sample_mask = action_sample_mask & ~pred_mask
-        action_sample_mask_f = action_sample_mask.to(torch.float32)
-        action_count = action_sample_mask_f.sum().clamp(min=1.0)
-        action_per_sample = cfg.action_loss_weight * action_loss * action_sample_mask_f
-        action_metrics["action_loss"] = (action_loss * action_sample_mask_f).sum() / action_count
-        metrics.update(action_metrics)
+        if suffix is None:
+            # JAX's loss without an action expert: the language term alone.
+            total_per_sample = lang_per_sample
+            if cfg.enable_langact_training and sample_mask is not None:
+                final_loss = lang_per_sample.sum() / sample_mask.sum().to(torch.float32).clamp(min=1.0)
+            else:
+                final_loss = lang_per_sample.mean()
+        else:
+            action_loss, action_metrics = self._compute_action_loss(pre_logits[1], suffix["u_t"])
+            action_sample_mask = torch.ones(batch_size, dtype=torch.bool, device=device)
+            if vqa_mask is not None:
+                action_sample_mask = action_sample_mask & ~vqa_mask
+            if pred_mask is not None:
+                action_sample_mask = action_sample_mask & ~pred_mask
+            action_sample_mask_f = action_sample_mask.to(torch.float32)
+            action_count = action_sample_mask_f.sum().clamp(min=1.0)
+            action_per_sample = cfg.action_loss_weight * action_loss * action_sample_mask_f
+            action_metrics["action_loss"] = (action_loss * action_sample_mask_f).sum() / action_count
+            metrics.update(action_metrics)
+            total_per_sample = lang_per_sample + action_per_sample
+
+            action_term = action_per_sample.sum() / action_count
+            if not cfg.enable_langact_training:
+                lang_term = 0.0
+            elif sample_mask is not None:
+                lang_term = lang_per_sample.sum() / sample_mask.sum().to(torch.float32).clamp(min=1.0)
+            else:
+                lang_term = lang_per_sample.mean()
+            final_loss = lang_term + action_term
 
         if verbose:
-            metrics["per_sample_loss"] = lang_per_sample + action_per_sample
-
-        action_term = action_per_sample.sum() / action_count
-        if not cfg.enable_langact_training:
-            lang_term = 0.0
-        elif sample_mask is not None:
-            lang_term = lang_per_sample.sum() / sample_mask.sum().to(torch.float32).clamp(min=1.0)
-        else:
-            lang_term = lang_per_sample.mean()
-        final_loss = lang_term + action_term
+            metrics["per_sample_loss"] = total_per_sample
 
         if augmented_images is not None:
             metrics["augmented_images"] = augmented_images
@@ -630,6 +696,11 @@ class LAP(nn.Module):
                        generator: torch.Generator | None = None) -> torch.Tensor:
         """Prefill the prefix, then Euler-integrate the flow from t=1 to 0."""
         cfg = self.config
+        if not cfg.enable_action_training:
+            raise ValueError(
+                "sample_actions needs the action expert: this model was built with enable_action_training=False "
+                "(VLM-only); serve it with sample_tokens (ARPolicy)"
+            )
         observation = preprocess_observation(
             observation, image_keys=cfg.image_keys, image_resolution=cfg.image_resolution
         )
@@ -686,10 +757,11 @@ class LAP(nn.Module):
         prefill_len = prefix_mask.sum(dim=-1)
         prefix_attn_mask = F.pad(prefix_attn_mask, (0, max_decoding_steps))
         positions = torch.cumsum(prefix_mask, dim=-1) - 1
-        (pre_logits, _), kv_cache = self.llm([prefix_tokens, None], positions, prefix_attn_mask, [None, None], **extra)
+        pre_logits, kv_cache = self.llm(self._experts_input(prefix_tokens), positions, prefix_attn_mask,
+                                        self._experts_input(None), **extra)
         return ARState(
             kv_cache=kv_cache,
-            logits=self.llm.decode_logits(pre_logits[:, -1:]),
+            logits=self.llm.decode_logits(pre_logits[0][:, -1:]),
             prefill_len=prefill_len,
             prefix_start=prefill_size - prefill_len,
             prefill_size=prefill_size,
@@ -703,10 +775,10 @@ class LAP(nn.Module):
         pos = state.prefill_len[:, None] + state.step
         col = torch.arange(total, device=token.device)[None, None, :]
         mask = (col >= state.prefix_start[:, None, None]) & (col < state.prefill_size + state.step + 1)
-        (pre_logits, _), state.kv_cache = self.llm(
-            [self.llm.embed(token), None], pos, mask, [None, None], kv_cache=state.kv_cache
+        pre_logits, state.kv_cache = self.llm(
+            self._experts_input(self.llm.embed(token)), pos, mask, self._experts_input(None), kv_cache=state.kv_cache
         )
-        state.logits = self.llm.decode_logits(pre_logits)
+        state.logits = self.llm.decode_logits(pre_logits[0])
         state.step += 1
         return state.logits
 
@@ -734,7 +806,10 @@ class LAP(nn.Module):
 
 
 # Freeze filters: predicates over the port's parameter names (as given by
-# ``named_parameters``), consumed by ``training.train_step``.
+# ``named_parameters``), consumed by ``training.train_step``. Each name is
+# translated to its JAX params path (``convert.jax_path``) and judged by the
+# JAX package's regex rules (``lap_tpu/models/lap_model.py:891-924``), so the
+# port freezes exactly the leaves JAX freezes.
 
 _EXPERT_LISTS = (
     "q_einsum", "kv_einsum", "qkv_einsum", "attn_vec_einsum",
@@ -749,33 +824,45 @@ def is_action_expert_param(name: str) -> bool:
     return _EXPERT_1.search(name) is not None
 
 
+def path_matches(path: str, pattern: str) -> bool:
+    return re.search(pattern, path) is not None
+
+
+def _on_jax_path(rule):
+    """A predicate over port names from one over JAX params paths."""
+    from lap_tpu_torch.models.convert import jax_path
+
+    return lambda name: rule(jax_path(name))
+
+
 def get_freeze_filter(config: LAPConfig):
-    """Returns predicate(name) -> bool for params to FREEZE, or None. Only
-    LoRA variants freeze anything here, and LoRA is not ported."""
+    """Returns predicate(name) -> bool for params to FREEZE, or None: with a
+    LoRA VLM and/or action expert, every ``llm`` leaf of the adapted
+    expert(s) but the adapters."""
     pali_lora = "lora" in config.paligemma_variant
     expert_lora = "lora" in config.action_expert_variant
     if not (pali_lora or expert_lora):
         return None
 
-    def frozen(name: str) -> bool:
-        if "lora" in name:
-            return False
-        if not name.startswith("llm."):
+    def frozen(path: str) -> bool:
+        if path_matches(path, r"lora"):
             return False
         if pali_lora and expert_lora:
-            return True
-        return is_action_expert_param(name) == expert_lora
+            return path_matches(path, r"llm")
+        if pali_lora:
+            return path_matches(path, r"llm") and not path_matches(path, r"_1")
+        return path_matches(path, r"llm") and path_matches(path, r"_1")
 
-    return frozen
+    return _on_jax_path(frozen)
 
 
 def get_vlm_freeze_filter(config: LAPConfig):
-    """Freeze the VLM (``llm`` minus the action expert) and the image encoder."""
+    """Freeze the VLM (``llm`` minus the `_1` action expert) and the image encoder."""
     del config
 
-    def frozen(name: str) -> bool:
-        if name.startswith("img."):
+    def frozen(path: str) -> bool:
+        if path_matches(path, r"img"):
             return True
-        return name.startswith("llm.") and not is_action_expert_param(name)
+        return path_matches(path, r"llm") and not path_matches(path, r"_1")
 
-    return frozen
+    return _on_jax_path(frozen)

@@ -1,5 +1,16 @@
-"""Einsum and gated-GELU FeedForward layers with weight-only quantized serving
-(port of ``lap_tpu/models/lora.py``; LoRA adapters are not ported).
+"""Einsum and gated-GELU FeedForward layers with LoRA adapters and weight-only
+quantized serving (port of ``lap_tpu/models/lora.py``).
+
+LoRA (``LoRAConfig``): an adapted ``Einsum`` adds ``scaling * einsum(einsum(x,
+lora_a), lora_b)`` to its product, the weight's last two axes (in, out)
+factored as ``lora_a`` [..., in, r] and ``lora_b`` [..., r, out]
+(``_lora_einsum``); an adapted ``FeedForward`` adds ``gating_lora_a/b``
+[2, D, r] / [2, r, F] to the gate and up projections and ``linear_lora_a/b``
+[F, r] / [r, D] to the output, in the activation dtype, in JAX's order of
+operations. ``lora_a`` starts at N(0, ``init_scale``) and ``lora_b`` at zero,
+so an adapted layer starts as its base. An adapted weight is never quantized
+(``quant_enabled`` refuses it: the kernel reads the base weight alone); its
+unadapted neighbours still are.
 
 Weights keep the JAX checkpoint shapes (``w``; ``gating_einsum`` [2, D, F],
 ``linear`` [F, D]). ``quantize_("int8" | "int4")`` adds quantized copies of
@@ -17,6 +28,7 @@ bf16 weights stay: the prefill needs them.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -86,13 +98,39 @@ def _quant_pair(w_raw: torch.Tensor, w_perm, n_contract: int, mode: str):
     return _int8.quantize_int8(wt, axis=0)
 
 
-def quant_enabled(quant: str | None, n_weight_elems: int) -> bool:
-    """Whether a weight of this size is quantized in mode ``quant``."""
+def quant_enabled(quant: str | None, lora_config, n_weight_elems: int) -> bool:
+    """Whether a weight of this size, adapted by ``lora_config`` (None: not
+    adapted), is quantized in mode ``quant``."""
     if quant is None:
         return False
     if quant not in QUANT_MODES:
         raise ValueError(f"unknown quant mode: {quant}")
-    return n_weight_elems >= QUANT_MIN_WEIGHT_ELEMS
+    return lora_config is None and n_weight_elems >= QUANT_MIN_WEIGHT_ELEMS
+
+
+@dataclasses.dataclass(frozen=True)
+class LoRAConfig:
+    rank: int
+    alpha: float = 1.0
+    # Standard deviation of lora_a at init (lora_b starts at zero).
+    init_scale: float = 0.01
+
+    @property
+    def scaling_value(self) -> float:
+        return self.alpha / self.rank
+
+
+def _lora_einsum(eqn: str, x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, scaling: float) -> torch.Tensor:
+    """The low-rank term of ``einsum(eqn, x, w)``: the weight's last two axes
+    (in, out) factored as (..., in, r) @ (..., r, out)."""
+    lhs, rhs = eqn.split("->")
+    x_spec, w_spec = lhs.split(",")
+    out_axis = w_spec[-1]
+    a_spec = w_spec[:-1] + "r"
+    mid_spec = rhs.replace(out_axis, "r")
+    b_spec = w_spec[:-2] + "r" + out_axis
+    mid = torch.einsum(f"{x_spec},{a_spec}->{mid_spec}", x, a)
+    return scaling * torch.einsum(f"{mid_spec},{b_spec}->{rhs}", mid, b)
 
 
 def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, out_shape) -> torch.Tensor:
@@ -114,8 +152,11 @@ class QuantWeights(nn.Module):
     """A module whose large weights may carry quantized copies as buffers.
 
     Subclasses list their weights in ``quant_targets``: (buffer prefix,
-    weight, w_perm, number of contraction axes).
+    weight, w_perm, number of contraction axes); ``lora_config`` (None
+    unless adapted) keeps an adapted module's weights unquantized.
     """
+
+    lora_config: LoRAConfig | None = None
 
     def quant_targets(self) -> list[tuple[str, torch.Tensor, tuple[int, ...], int]]:
         raise NotImplementedError
@@ -124,7 +165,7 @@ class QuantWeights(nn.Module):
         """Name -> (shape, dtype) of every buffer ``quantize_(mode)`` makes."""
         spec = {}
         for prefix, w, w_perm, n_contract in self.quant_targets():
-            if not quant_enabled(mode, w.numel()):
+            if not quant_enabled(mode, self.lora_config, w.numel()):
                 continue
             k, n = _kn(w.shape, w_perm, n_contract)
             g = _int4_group(k) if mode == "int4" else None
@@ -147,7 +188,7 @@ class QuantWeights(nn.Module):
         remove them)."""
         self.clear_quant_()
         for prefix, w, w_perm, n_contract in self.quant_targets():
-            if quant_enabled(mode, w.numel()):
+            if quant_enabled(mode, self.lora_config, w.numel()):
                 w_q, scale = _quant_pair(w, w_perm, n_contract, mode)
                 self.register_buffer(prefix + ("w_i4" if scale.dim() == 2 else "w_i8"), w_q)
                 self.register_buffer(prefix + "scale", scale)
@@ -162,17 +203,25 @@ class QuantWeights(nn.Module):
 
 
 class Einsum(QuantWeights):
-    """y = einsum(eqn, x, w), computed in the dtype of ``x``.
+    """y = einsum(eqn, x, w), computed in the dtype of ``x``, plus the LoRA
+    term with ``lora_config``.
 
     ``fan_in`` is the size of the contracted weight axes (for random init).
     """
 
-    def __init__(self, shape: tuple[int, ...], eqn: str, fan_in: int, *, device=None, dtype=None):
+    def __init__(self, shape: tuple[int, ...], eqn: str, fan_in: int, *, lora_config: LoRAConfig | None = None,
+                 device=None, dtype=None):
         super().__init__()
         self.w = nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
         self.eqn = eqn
         self.plan = _plan_quant_einsum(eqn)
         self.fan_in = fan_in
+        self.lora_config = lora_config
+        if lora_config is not None:
+            *batch, d_in, d_out = shape
+            kw = dict(device=device, dtype=dtype)
+            self.lora_a = nn.Parameter(torch.empty((*batch, d_in, lora_config.rank), **kw))
+            self.lora_b = nn.Parameter(torch.empty((*batch, lora_config.rank, d_out), **kw))
 
     def quant_targets(self):
         _, contract, _, w_perm, _ = self.plan
@@ -184,21 +233,40 @@ class Einsum(QuantWeights):
         if q is not None and _rows(x, len(x_batch)) <= QUANT_MAX_ROWS:
             out_dims = tuple(x.shape[: len(x_batch)]) + tuple(self.w.shape[p] for p in w_perm[len(contract):])
             return quant_matmul(x, *q, out_dims).permute(*out_perm)
-        return torch.einsum(self.eqn, x, self.w.to(x.dtype))
+        out = torch.einsum(self.eqn, x, self.w.to(x.dtype))
+        cfg = self.lora_config
+        if cfg is not None:
+            out = out + _lora_einsum(self.eqn, x, self.lora_a.to(x.dtype), self.lora_b.to(x.dtype),
+                                     cfg.scaling_value)
+        return out
 
     def random_init_(self, gen: torch.Generator) -> None:
         self.w.normal_(0.0, self.fan_in**-0.5, generator=gen)
+        if self.lora_config is not None:
+            _lora_init_(self.lora_a, self.lora_b, self.lora_config, gen)
+
+
+def _lora_init_(a: torch.Tensor, b: torch.Tensor, cfg: LoRAConfig, gen: torch.Generator) -> None:
+    """JAX's adapter init: ``a`` ~ N(0, init_scale), ``b`` zero."""
+    a.normal_(0.0, cfg.init_scale, generator=gen)
+    b.zero_()
 
 
 class FeedForward(QuantWeights):
-    """Gemma gated-GELU MLP: (gelu_tanh(x @ w0) * (x @ w1)) @ w2."""
+    """Gemma gated-GELU MLP: (gelu_tanh(x @ w0) * (x @ w1)) @ w2, plus the
+    LoRA terms with ``lora_config``."""
 
-    def __init__(self, features: int, hidden_dim: int, *, device=None, dtype=None):
+    def __init__(self, features: int, hidden_dim: int, *, lora_config: LoRAConfig | None = None,
+                 device=None, dtype=None):
         super().__init__()
         self.gating_einsum = nn.Parameter(
             torch.empty((2, features, hidden_dim), device=device, dtype=dtype)
         )
         self.linear = nn.Parameter(torch.empty((hidden_dim, features), device=device, dtype=dtype))
+        self.lora_config = lora_config
+        if lora_config is not None:
+            _add_mlp_lora(self, (2, features, lora_config.rank), (2, lora_config.rank, hidden_dim),
+                          hidden_dim, features, device=device, dtype=dtype)
 
     def quant_targets(self):
         # [2, D, F] -> [D, 2F]: both projections stream in one matmul.
@@ -213,12 +281,38 @@ class FeedForward(QuantWeights):
         else:
             w = self.gating_einsum.to(x.dtype)
             gate_pre, up = x @ w[0], x @ w[1]
+        cfg = self.lora_config
+        if cfg is not None:
+            a, b = self.gating_lora_a.to(x.dtype), self.gating_lora_b.to(x.dtype)
+            gate_pre = gate_pre + cfg.scaling_value * ((x @ a[0]) @ b[0])
+            up = up + cfg.scaling_value * ((x @ a[1]) @ b[1])
         act = F.gelu(gate_pre, approximate="tanh") * up
         linear = self.quantized("linear_")
         if linear is not None and rows_ok:
             return quant_matmul(act, *linear, (*x.shape[:-1], self.linear.shape[-1]))
-        return act @ self.linear.to(x.dtype)
+        out = act @ self.linear.to(x.dtype)
+        if cfg is not None:
+            out = out + cfg.scaling_value * ((act @ self.linear_lora_a.to(x.dtype)) @ self.linear_lora_b.to(x.dtype))
+        return out
 
     def random_init_(self, gen: torch.Generator) -> None:
         self.gating_einsum.normal_(0.0, self.gating_einsum.shape[1] ** -0.5, generator=gen)
         self.linear.normal_(0.0, self.linear.shape[0] ** -0.5, generator=gen)
+        mlp_lora_init_(self, gen)
+
+
+def _add_mlp_lora(module: nn.Module, gating_a, gating_b, hidden: int, features: int, *, device, dtype) -> None:
+    """The adapters of a gated MLP: ``gating_lora_a/b`` of the given shapes,
+    ``linear_lora_a`` [hidden, r] and ``linear_lora_b`` [r, features]."""
+    r = module.lora_config.rank
+    kw = dict(device=device, dtype=dtype)
+    module.gating_lora_a = nn.Parameter(torch.empty(gating_a, **kw))
+    module.gating_lora_b = nn.Parameter(torch.empty(gating_b, **kw))
+    module.linear_lora_a = nn.Parameter(torch.empty((hidden, r), **kw))
+    module.linear_lora_b = nn.Parameter(torch.empty((r, features), **kw))
+
+
+def mlp_lora_init_(module: nn.Module, gen: torch.Generator) -> None:
+    if module.lora_config is not None:
+        _lora_init_(module.gating_lora_a, module.gating_lora_b, module.lora_config, gen)
+        _lora_init_(module.linear_lora_a, module.linear_lora_b, module.lora_config, gen)

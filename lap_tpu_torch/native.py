@@ -2,8 +2,8 @@
 
 The port's counterpart of ``lap_tpu/native/__init__.py``, reading the port's
 own copy of the source. These are host ops on the serving path (the
-resize-with-pad of camera frames and the unigram tokenizer's Viterbi loop),
-not device kernels. The library is compiled with ``g++ -O3 -shared`` at first
+resize-with-pad of camera frames, the unigram tokenizer's Viterbi loop and
+the FAST codec's BPE merge loop, ``NativeIntBPE``), not device kernels. The library is compiled with ``g++ -O3 -shared`` at first
 use into ``lap_tpu_torch/_build/``, never at import. Every consumer keeps the
 JAX package's pure-Python fallback, so serving works without a toolchain,
 just slower on the host; whether the library loaded is logged once and
@@ -70,6 +70,11 @@ def get_lib():
         lib.unigram_encode.argtypes = [
             ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ]
+        lib.bpe_create.restype = ctypes.c_void_p
+        lib.bpe_create.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        lib.bpe_free.argtypes = [ctypes.c_void_p]
+        lib.bpe_encode.restype = ctypes.c_int
+        lib.bpe_encode.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
         _lib = lib
         logger.info("native host ops loaded from %s", LIB_PATH)
     except Exception as e:  # noqa: BLE001
@@ -112,6 +117,31 @@ def rotate180_u8(img: np.ndarray) -> np.ndarray | None:
     h, w, c = out.shape
     lib.rotate180_u8(out.ctypes.data, h, w, c)
     return out
+
+
+class NativeIntBPE:
+    """C++ greedy lowest-rank-first BPE over integer symbol streams (the
+    semantics of ``lap_tpu_torch.models.bpe.IntBPE.encode_py``)."""
+
+    def __init__(self, merges: list[tuple[int, int]], alphabet_size: int):
+        lib = get_lib()
+        if lib is None:
+            raise RuntimeError("native lib unavailable")
+        self._lib = lib
+        flat = np.ascontiguousarray(np.asarray(merges, np.int32).reshape(-1))
+        self._handle = lib.bpe_create(flat.ctypes.data, len(merges), alphabet_size)
+
+    def encode(self, seq: list[int]) -> list[int]:
+        arr = np.ascontiguousarray(np.asarray(seq, np.int32))
+        if arr.size < 2:
+            return arr.tolist()
+        out = np.empty(arr.size, np.int32)
+        n = self._lib.bpe_encode(self._handle, arr.ctypes.data, arr.size, out.ctypes.data, out.size)
+        return out[:n].tolist()
+
+    def __del__(self):
+        if getattr(self, "_handle", None) and getattr(self, "_lib", None):
+            self._lib.bpe_free(self._handle)
 
 
 class NativeUnigramVocab:

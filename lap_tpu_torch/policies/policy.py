@@ -163,9 +163,15 @@ class _ModelPolicy(BasePolicy):
 
 
 class Policy(_ModelPolicy):
-    """Flow-matching action-chunk policy."""
+    """Flow-matching action-chunk policy. A VLM-only model (no action
+    expert) is refused: serve it with ``ARPolicy``."""
 
     def __init__(self, model, *, num_steps: int = 10, **kw):
+        if not model.config.enable_action_training:
+            raise ValueError(
+                "the flow Policy needs the action expert: this model was built with enable_action_training=False "
+                "(VLM-only); serve it with ARPolicy (create_trained_policy_ar)"
+            )
         super().__init__(model, **kw)
         self._num_steps = num_steps
 

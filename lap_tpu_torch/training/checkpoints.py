@@ -20,8 +20,9 @@
   JAX layout, one directory a step, ``{directory}/{step}/``:
 
   - ``train_state/train_state.pt``: the step, the trainable names, the
-    parameters, the Adam ``count``/``mu``/``nu`` (over the trainable names)
-    and the EMA (``{}`` when there is none, as the JAX package encodes it,
+    parameters, the optimizer's ``count`` and buffers (Adam's
+    ``mu``/``nu``, SGD's ``trace``; over the trainable names) and the EMA
+    (``{}`` when there is none, as the JAX package encodes it,
     ``:170-174``). ``torch.save`` copies a card's tensors to the host one
     storage at a time; the restore loads with ``mmap=True`` and copies tensor
     by tensor into the live state;
@@ -37,8 +38,19 @@
   directory). Retention matches orbax's with ``max_to_keep`` and
   ``keep_period``: after a save a step is kept if it is one of the newest
   ``max_to_keep`` or a multiple of ``keep_period``. A failed save is retried
-  ``save_retries`` times with a doubling delay. The save is synchronous: the
-  loop waits for it (asynchronous saves are ROADMAP item 12b).
+  ``save_retries`` times with a doubling delay.
+
+  Saves are asynchronous by default, as JAX's ``async_save=True``
+  (``checkpoints.py:44-128``): ``save`` copies the state to host memory
+  (pinned for a card's tensors, one copy a storage, one device sync) and
+  returns; a writer thread writes, fsyncs, renames and applies retention,
+  with the same retry. A second ``save`` and ``restore`` wait for the write
+  in flight; ``wait_until_finished`` joins it; an error of the writer is
+  raised by the next ``save`` or ``wait_until_finished``. ``last_save``
+  holds the step, its bytes, the seconds ``save`` blocked the caller
+  (``blocked_s``: the wait for an earlier write and the copy) and the
+  seconds of the write (``seconds``).
+  ``async_save=False`` writes from the live tensors before returning.
   ``load_assets`` reads the JAX package's assets item
   (``{step}/assets/metadata``, one JSON object) and falls back to the file
   ``{step}/assets/<path>`` (``:153-167``).
@@ -54,6 +66,7 @@ import json
 import logging
 import os
 import shutil
+import threading
 import time
 from pathlib import Path
 from typing import Any
@@ -151,18 +164,53 @@ def copy_tensors(own: dict[str, torch.Tensor], saved: dict[str, torch.Tensor], w
 
 
 def _train_state_dict(state: TrainState) -> dict:
+    opt = {"count": int(state.opt_state.count)}
+    for name, tensors in state.opt_state.buffers().items():
+        opt[name] = dict(zip(state.trainable, tensors, strict=True))
     return {
         "step": int(state.step),
         "trainable": list(state.trainable),
         "params": {n: p.detach() for n, p in state.params.items()},
-        "opt_state": {
-            "count": int(state.opt_state.count),
-            "mu": dict(zip(state.trainable, state.opt_state.mu, strict=True)),
-            "nu": dict(zip(state.trainable, state.opt_state.nu, strict=True)),
-        },
+        "opt_state": opt,
         # No EMA is saved as {} (the JAX package's encoding).
         "ema_params": {} if state.ema_params is None else dict(state.ema_params),
     }
+
+
+def _payload(state: TrainState) -> dict:
+    """What a step directory holds: the train state and the EMA view."""
+    return {"train_state": _train_state_dict(state), "params": dict(inference_params(state))}
+
+
+def snapshot_to_host(tree):
+    """A copy of every tensor of ``tree`` (nested dicts) in host memory:
+    pinned for a card's tensors (copied without blocking, then one device
+    sync), cloned for the CPU's; tensors that share storage and layout are
+    copied once and stay shared."""
+    copies: dict = {}
+    synced = []
+
+    def copy(t: torch.Tensor) -> torch.Tensor:
+        key = (t.data_ptr(), t.dtype, tuple(t.shape), tuple(t.stride()), t.device)
+        if key not in copies:
+            if t.is_cuda:
+                out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                out.copy_(t.detach(), non_blocking=True)
+                synced.append(t.device)
+            else:
+                out = t.detach().clone()
+            copies[key] = out
+        return copies[key]
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return copy(node) if isinstance(node, torch.Tensor) else node
+
+    out = walk(tree)
+    for device in set(synced):
+        torch.cuda.synchronize(device)
+    return out
 
 
 def _fsync_tree(root: Path) -> None:
@@ -194,11 +242,14 @@ class CheckpointManager:
     max_to_keep: int | None = 1
     save_retries: int = 2
     retry_delay_s: float = 1.0
+    async_save: bool = True
 
     def __post_init__(self):
         self.directory = Path(self.directory).resolve()
         self.directory.mkdir(parents=True, exist_ok=True)
-        self.last_save: dict | None = None  # step, bytes and seconds of the latest save
+        self.last_save: dict | None = None  # step, bytes and seconds of the latest finished save
+        self._writer: threading.Thread | None = None
+        self._writer_error: BaseException | None = None
         for stale in self.directory.glob(f"*{TMP_MARK}*"):
             logger.info("removing the unfinished checkpoint %s", stale)
             shutil.rmtree(stale, ignore_errors=True)
@@ -217,12 +268,39 @@ class CheckpointManager:
     # -- save ---------------------------------------------------------------
     def save(self, step: int, state: TrainState, *, assets: dict | None = None) -> None:
         """Write ``{step}/`` (train state, EMA view, assets), retrying a
-        failed write with a doubling delay, then apply retention."""
-        delay = self.retry_delay_s
+        failed write with a doubling delay, then apply retention; with
+        ``async_save`` from a host snapshot, on the writer thread."""
         t0 = time.monotonic()
+        self.wait_until_finished()  # a write in flight blocks the caller too
+        if not self.async_save:
+            self._save_blocking(step, _payload(state), assets or {}, t0, blocked_s=None)
+            return
+        payload = snapshot_to_host(_payload(state))
+        blocked_s = time.monotonic() - t0
+
+        def write():
+            try:
+                self._save_blocking(step, payload, assets or {}, time.monotonic(), blocked_s=blocked_s)
+            except BaseException as e:  # noqa: BLE001 - raised by the next save / wait
+                self._writer_error = e
+
+        self._writer = threading.Thread(target=write, name=f"checkpoint-{step}")
+        self._writer.start()
+
+    def wait_until_finished(self) -> None:
+        """Join the write in flight; raise its error, if it failed."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._writer_error is not None:
+            error, self._writer_error = self._writer_error, None
+            raise error
+
+    def _save_blocking(self, step: int, payload: dict, assets: dict, t0: float, *, blocked_s) -> None:
+        delay = self.retry_delay_s
         for attempt in range(self.save_retries + 1):
             try:
-                self._write(step, state, assets or {})
+                self._write(step, payload, assets)
                 break
             except OSError as e:
                 logger.warning("checkpoint save at step %d failed (attempt %d/%d): %s",
@@ -233,15 +311,16 @@ class CheckpointManager:
                 delay *= 2
         seconds = time.monotonic() - t0
         nbytes = sum(f.stat().st_size for f in self.step_dir(step).rglob("*") if f.is_file())
-        self.last_save = {"step": step, "bytes": nbytes, "seconds": seconds}
+        self.last_save = {"step": step, "bytes": nbytes, "seconds": seconds,
+                          "blocked_s": seconds if blocked_s is None else blocked_s}
         self._remove_old()
 
-    def _write(self, step: int, state: TrainState, assets: dict) -> None:
+    def _write(self, step: int, payload: dict, assets: dict) -> None:
         tmp = self.directory / f"{step}{TMP_MARK}{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         (tmp / "train_state").mkdir(parents=True)
-        torch.save(_train_state_dict(state), tmp / "train_state" / TRAIN_STATE_FILE)
-        save_params(inference_params(state), tmp / "params")
+        torch.save(payload["train_state"], tmp / "train_state" / TRAIN_STATE_FILE)
+        save_params(payload["params"], tmp / "params")
         for rel, payload in assets.items():
             path = tmp / "assets" / rel
             path.parent.mkdir(parents=True, exist_ok=True)
@@ -266,7 +345,9 @@ class CheckpointManager:
     @torch.no_grad()
     def restore(self, step: int | None, state: TrainState) -> TrainState:
         """Fill ``state`` (its model's parameters, moments, EMA, step) from
-        ``{step}/train_state`` (the latest step when None), in place."""
+        ``{step}/train_state`` (the latest step when None), in place, after
+        the write in flight."""
+        self.wait_until_finished()
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -281,10 +362,14 @@ class CheckpointManager:
         if (state.ema_params is None) != (not saved["ema_params"]):
             raise ValueError(f"{path}: the saved run {'had' if saved['ema_params'] else 'had no'} EMA; this one "
                              f"{'has none' if state.ema_params is None else 'has one'}")
-        copy_tensors(state.params, saved["params"], "train state params")
         opt = saved["opt_state"]
-        copy_tensors(dict(zip(state.trainable, state.opt_state.mu, strict=True)), opt["mu"], "Adam mu")
-        copy_tensors(dict(zip(state.trainable, state.opt_state.nu, strict=True)), opt["nu"], "Adam nu")
+        buffers = state.opt_state.buffers()
+        if set(opt) - {"count"} != set(buffers):
+            raise ValueError(f"{path}: optimizer state {sorted(set(opt) - {'count'})} saved, this run's optimizer "
+                             f"keeps {sorted(buffers)}: resume with the saved run's optimizer")
+        copy_tensors(state.params, saved["params"], "train state params")
+        for name, tensors in buffers.items():
+            copy_tensors(dict(zip(state.trainable, tensors, strict=True)), opt[name], f"optimizer {name}")
         state.opt_state.count = int(opt["count"])
         if state.ema_params is not None:
             copy_tensors(state.ema_params, saved["ema_params"], "EMA")

@@ -7,13 +7,19 @@ offline eval read (``:216-286``): run names and directories, checkpoint
 interval and retention, resume / overwrite, validation and ``eval_*``.
 ``cli()`` resolves ``<config> [--field value ...]`` as JAX's does.
 
-Named configs: ``lap``, ``lap_libero``, the Gemma3 family (``lap_gemma3_4b``,
-``lap_gemma3_12b``, ``lap_gemma3_27b``, ``lap_gemma3_4b_libero``) and
-``debug``. Left out: the RLDS pipeline's data fields (ROADMAP item 19), meshes
-and parallelism (item 13), wandb (item 21), and the named configs and
-``LAPConfig`` fields of the FAST (``pi05_replicated``, ``fast_gemma3_4b``),
-pi0 and vla0 models (items 12b and 20). Defaults equal JAX's; a test compares
-them field by field.
+Named configs: all 13 of JAX's: ``lap``, ``pi05_replicated`` (FAST action
+tokens), ``pi0_replicated``, ``lap_gemma3_4b``, ``fast_gemma3_4b``,
+``lap_gemma3_12b``, ``lap_gemma3_27b``, ``vla0_replicated`` and
+``vla0_replicated_libero`` (the VLM-only model), ``lap_libero``,
+``lap_cotrain``, ``lap_gemma3_4b_libero`` and ``debug``. With ``use_fast``
+the model transforms are the FAST group (``TokenizeFASTInputs`` in,
+``ExtractFASTActions`` out), built as JAX builds it. The optimizer is
+``AdamW`` or ``SGDConfig`` (``--optimizer SGDConfig``). Left out: the RLDS
+pipeline's data fields (ROADMAP item 19), meshes and parallelism (item 13)
+and wandb (item 21). Every config but ``debug`` reads ``oxe`` or ``libero``,
+which the loader refuses until item 19; ``--data.repo_id fake`` trains any
+of them on synthetic batches. Defaults equal JAX's; a test compares them
+field by field.
 """
 
 from __future__ import annotations
@@ -121,13 +127,14 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelTransformFactory:
     """Builds the tokenizer and model transform Group per model type
-    (``lap_tpu/training/config.py:135-213``). The FAST variant
-    (``use_fast``) waits for the port of ``fast_tokenizer.py`` and
-    ``bpe.py`` (ROADMAP item 12b)."""
+    (``lap_tpu/training/config.py:135-213``). ``fast_tokenizer_path``
+    is JAX's field; as there, nothing reads it (the codec is the DCT-only
+    ``make_fast_tokenizer``)."""
 
     prompt_format: str = "lap"
     prediction_format: str = "default"
     include_outputs: bool = True
+    fast_tokenizer_path: str = "physical-intelligence/fast"
     gemma3_tokenizer_path: str | None = None
     default_prompt: str | None = None
 
@@ -150,9 +157,34 @@ class ModelTransformFactory:
 
     def __call__(self, model_config: LAPConfig) -> Group:
         if model_config.use_fast:
-            raise NotImplementedError(
-                "use_fast=True: the FAST action tokenizer (fast_tokenizer.py, bpe.py) is not ported yet "
-                "(ROADMAP queue A, item 12b)"
+            from lap_tpu_torch.models.fast_tokenizer import (
+                ExtractFASTActions,
+                TokenizeFASTInputs,
+                make_fast_tokenizer,
+            )
+
+            fast_tok = make_fast_tokenizer(
+                model_config,
+                prompt_format=self.prompt_format,
+                prediction_format=self.prediction_format,
+                gemma3_tokenizer_path=self.gemma3_tokenizer_path,
+            )
+            return Group(
+                inputs=(
+                    InjectDefaultPrompt(self.default_prompt),
+                    TokenizeFASTInputs(
+                        fast_tok,
+                        discrete_state_input=model_config.discrete_state_input,
+                        state_dropout=model_config.state_dropout,
+                    ),
+                ),
+                outputs=(
+                    ExtractFASTActions(
+                        fast_tok,
+                        action_horizon=model_config.action_horizon,
+                        action_dim=model_config.action_dim,
+                    ),
+                ),
             )
         outputs = ()
         if self.include_outputs:
@@ -188,7 +220,7 @@ class TrainConfig:
             warmup_steps=5_000, peak_lr=1e-4, decay_steps=40_000, decay_lr=1e-5
         )
     )
-    optimizer: _optimizer.AdamW = dataclasses.field(
+    optimizer: _optimizer.AdamW | _optimizer.SGDConfig = dataclasses.field(
         default_factory=lambda: _optimizer.AdamW(weight_decay=0.0001)
     )
 
@@ -292,6 +324,75 @@ _CONFIGS = [
         batch_size=2048,
     ),
     TrainConfig(
+        name="pi05_replicated",
+        model=LAPConfig(
+            action_dim=7,
+            action_horizon=16,
+            max_token_len=220,
+            use_fast=True,
+            enable_action_training=True,
+            stop_action_to_vlm_grad=True,
+        ),
+        batch_size=2048,
+    ),
+    TrainConfig(
+        name="pi0_replicated",
+        model=LAPConfig(
+            action_dim=7,
+            action_horizon=16,
+            max_token_len=220,
+            enable_action_training=True,
+            enable_langact_training=False,
+        ),
+        batch_size=2048,
+    ),
+    TrainConfig(
+        name="vla0_replicated",
+        model=LAPConfig(
+            action_dim=7,
+            action_horizon=10,
+            max_token_len=390,
+            pi05=True,
+            discrete_state_input=True,
+            enable_action_training=False,
+            enable_langact_training=True,
+            prompt_format="vla0_chunked",
+        ),
+        data=DataConfig(language_action_format_name="vla0_chunked", transform_strategy="vla0"),
+        batch_size=2048,
+    ),
+    TrainConfig(
+        name="vla0_replicated_libero",
+        model=LAPConfig(
+            action_dim=7,
+            action_horizon=10,
+            max_token_len=390,
+            enable_action_training=False,
+            enable_langact_training=True,
+            prompt_format="vla0_chunked",
+            reasoning_mask_prob=0.2,
+        ),
+        data=_libero_data(language_action_format_name="vla0_chunked", transform_strategy="vla0"),
+        lr_schedule=_FINETUNE_LR,
+        save_interval=2000,
+        keep_period=2000,
+        num_train_steps=40_001,
+        batch_size=256,
+        ema_schedule_choice=_optimizer.EmaScheduleChoice(kind="cosine_delayed", start_step=1000),
+    ),
+    TrainConfig(
+        name="lap_cotrain",
+        model=LAPConfig(
+            action_dim=7,
+            action_horizon=16,
+            max_token_len=220,
+            enable_action_training=True,
+            enable_prediction_training=True,
+            stop_action_to_vlm_grad=True,
+        ),
+        batch_size=2048,
+    ),
+    TrainConfig(
         name="lap_libero",
         model=LAPConfig(
             action_dim=7,
@@ -318,6 +419,12 @@ _CONFIGS = [
         model=_gemma3_model("gemma3_4b", "gemma3_300m"),
         batch_size=2048,
         weight_loader=weight_loaders.WeightLoaderChoice(kind="gemma3"),
+    ),
+    TrainConfig(
+        name="fast_gemma3_4b",
+        model=_gemma3_model("gemma3_4b", "gemma3_300m", use_fast=True),
+        weight_loader=weight_loaders.WeightLoaderChoice(kind="gemma3"),
+        batch_size=2048,
     ),
     TrainConfig(
         name="lap_gemma3_12b",
@@ -371,14 +478,14 @@ _CONFIGS = [
     ),
 ]
 
+if len({c.name for c in _CONFIGS}) != len(_CONFIGS):
+    raise ValueError("Config names must be unique.")
 _CONFIGS_DICT = {c.name: c for c in _CONFIGS}
 
 
 def get_config(config_name: str) -> TrainConfig:
     if config_name in _CONFIGS_DICT:
         return _CONFIGS_DICT[config_name]
-    if config_name == "fast_gemma3_4b":
-        raise NotImplementedError("config 'fast_gemma3_4b' needs the FAST action tokenizer (ROADMAP queue A, item 12b)")
     closest = difflib.get_close_matches(config_name, _CONFIGS_DICT.keys(), n=3, cutoff=0.0)
     hint = f" Did you mean one of: {', '.join(map(repr, closest))}?" if closest else ""
     raise ValueError(f"Config {config_name!r} not found.{hint}")

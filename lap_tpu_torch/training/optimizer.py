@@ -15,6 +15,15 @@ place, since optax differs from ``torch.optim.AdamW`` in small ways:
 The update runs through ``torch._foreach_*`` in place and reuses the gradient
 buffers as scratch, so it allocates nothing the size of the parameters; it is
 nine passes over parameter-sized state, which a fused kernel could make one.
+
+``SGDConfig`` is optax ``sgd(lr, momentum, nesterov)`` as the JAX package
+builds it (``optimizer.py:75-82``): ``trace = g + momentum * trace``, the
+update ``g + momentum * trace`` with ``nesterov`` and ``trace`` without,
+then ``p -= lr(count) * update``. As in JAX it has no gradient clip and no
+weight decay, and its ``lr`` field is unused (the schedule gives the rate);
+the trace takes the parameter's dtype. Each optimizer's state names its
+parameter-sized buffers (``buffers()``: Adam's ``mu`` and ``nu``, SGD's
+``trace``), which the checkpoints save by those names.
 """
 
 from __future__ import annotations
@@ -84,6 +93,9 @@ class AdamWState:
     mu: list[torch.Tensor]
     nu: list[torch.Tensor]
 
+    def buffers(self) -> dict[str, list[torch.Tensor]]:
+        return {"mu": self.mu, "nu": self.nu}
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamW:
@@ -123,6 +135,42 @@ class AdamW:
         # p <- p - lr * (update + wd * p)
         torch._foreach_mul_(params, 1 - lr * self.weight_decay)
         torch._foreach_addcdiv_(params, state.mu, grads, value=-lr * math.sqrt(c2) / c1)
+
+
+@dataclasses.dataclass
+class SGDState:
+    count: int
+    trace: list[torch.Tensor]
+
+    def buffers(self) -> dict[str, list[torch.Tensor]]:
+        return {"trace": self.trace}
+
+
+@dataclasses.dataclass(frozen=True)
+class SGDConfig:
+    lr: float | None = None
+    momentum: float = 0.9
+    nesterov: bool = False
+
+    def init(self, params: list[torch.Tensor]) -> SGDState:
+        return SGDState(count=0, trace=[torch.zeros_like(p) for p in params])
+
+    @torch.no_grad()
+    def update_(self, params, grads, state: SGDState, lr_schedule, grad_norm=None) -> None:
+        """One optax ``sgd`` step in place on ``params``, ``state`` and (as
+        scratch) ``grads``; ``grad_norm`` is not read (no clip)."""
+        del grad_norm
+        params, grads = list(params), list(grads)
+        lr = lr_schedule(state.count)
+        state.count += 1
+        torch._foreach_mul_(state.trace, self.momentum)
+        torch._foreach_add_(state.trace, grads)
+        if self.nesterov:
+            torch._foreach_add_(grads, state.trace, alpha=self.momentum)
+            update = grads
+        else:
+            update = state.trace
+        torch._foreach_add_(params, update, alpha=-lr)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from lap_tpu_torch.training.optimizer import AdamWState
+from lap_tpu_torch.training.optimizer import AdamWState, SGDState
 
 
 @dataclasses.dataclass
@@ -21,7 +21,7 @@ class TrainState:
     step: int
     model: nn.Module
     trainable: list[str]
-    opt_state: AdamWState
+    opt_state: AdamWState | SGDState
     ema_params: dict[str, torch.Tensor] | None = None  # None when EMA is disabled
 
     @property

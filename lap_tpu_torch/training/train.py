@@ -12,6 +12,10 @@
   weights merged in, with the EMA re-seeded from the merged weights
   (``:134-145``); when resuming, the model is built empty and the state and
   the loader's cursor are restored from the latest step (``:232-244``);
+- the optimizer of the config, ``AdamW`` or ``SGDConfig`` (``--optimizer
+  SGDConfig`` picks it on the command line, ``--optimizer.momentum`` etc.
+  set its fields); the freeze filter of the model (LoRA variants train
+  their adapters alone) or ``freeze_vlm``;
 - batches from ``data.loader.create_data_loader``; a log line at the first
   step and every ``log_interval``; ``val_step`` on the validation loader
   every ``val_interval`` (``use_validation``), its iterator restarted at its
@@ -27,6 +31,12 @@ batch visualisation. ``Trainer``, ``build_trainer`` and ``fake_train_batch``
 (optimizer steps on one synthetic batch: prompt tokens ``arange``, a
 language-action span from token 8, random uint8 images, seeded actions) stay
 for ``chip_smoke.py``'s timed steps.
+
+Checkpoints are saved asynchronously (``CheckpointManager.async_save``, as
+JAX's): the loop waits only for the copy to host memory; the run waits for
+the write before it exits (also after a SIGTERM), and a restore waits for
+any write in flight. Each finished save is logged once, with its bytes, the
+seconds of its write and the seconds it blocked the loop.
 """
 
 from __future__ import annotations
@@ -190,6 +200,22 @@ def gather_host_json(payload) -> list:
     return [payload]
 
 
+def _wait_for_saves(ckpt_mgr, timings: dict) -> None:
+    """Join the write in flight; its wait goes to ``timings["save_wait_s"]``."""
+    t0 = time.monotonic()
+    ckpt_mgr.wait_until_finished()
+    timings["save_wait_s"] = time.monotonic() - t0
+
+
+def _log_finished_save(ckpt_mgr, reported: dict) -> None:
+    """Log the latest finished save once."""
+    done = ckpt_mgr.last_save
+    if done and done["step"] != reported.get("step"):
+        logger.info("saved checkpoint at step %d (%d bytes in %.2f s; the loop blocked %.2f s)", done["step"],
+                    done["bytes"], done["seconds"], done["blocked_s"])
+        reported.update(done)
+
+
 def _collect_assets(config: TrainConfig, loader) -> dict:
     assets = {}
     stats = getattr(loader, "norm_stats", None)
@@ -214,7 +240,7 @@ class RunResult:
     data_iter: object
     checkpoints: _checkpoints.CheckpointManager
     metrics: dict  # the last logged step's (the first step is always logged)
-    timings: dict  # restore_s when the run resumed
+    timings: dict  # restore_s when the run resumed; save_wait_s, the wait for the last write
     val_iter: object = None
 
     def close(self) -> None:
@@ -274,6 +300,7 @@ def run(config: TrainConfig, *, device=None) -> RunResult:
 
     start_step = trainer.state.step
     metrics: dict = {}
+    reported: dict = {}
     try:
         for step in range(start_step, config.num_train_steps):
             batch = next(data_iter)
@@ -291,12 +318,15 @@ def run(config: TrainConfig, *, device=None) -> RunResult:
                     val_iter = iter(val_loader)
             if (step + 1) % config.save_interval == 0 or step + 1 == config.num_train_steps or preempted.is_set():
                 ckpt_mgr.save(step + 1, trainer.state, assets=_collect_assets(config, loader))
-                logger.info("saved checkpoint at step %d (%d bytes in %.2f s)", step + 1,
-                            ckpt_mgr.last_save["bytes"], ckpt_mgr.last_save["seconds"])
+                _log_finished_save(ckpt_mgr, reported)
             if preempted.is_set():
+                _wait_for_saves(ckpt_mgr, timings)
+                _log_finished_save(ckpt_mgr, reported)
                 logger.warning("exiting after preemption checkpoint at step %d", step + 1)
                 break
         else:
+            _wait_for_saves(ckpt_mgr, timings)
+            _log_finished_save(ckpt_mgr, reported)
             logger.info("training complete at step %d", config.num_train_steps)
     finally:
         if previous is not None:

@@ -1,9 +1,11 @@
 """The training step (port of ``lap_tpu/training/train_step.py``).
 
 Forward and backward with rematerialised layers, the AdamW update, staged EMA
-and gradient / parameter norms. Freezing is partitioned: a frozen parameter
-gets ``requires_grad=False``, so it has no gradient buffer, no optimizer
-moments and no EMA copy, and autograd prunes its backward work.
+and gradient / parameter norms (or SGD with momentum). Freezing is
+partitioned: a frozen parameter gets ``requires_grad=False``, so it has no
+gradient buffer, no optimizer state and no EMA copy, and autograd prunes its
+backward work. A trainable parameter the loss does not reach gets a zero
+gradient, as in JAX.
 
 Randomness: JAX derives a step's noise, flow time and augmentation from
 ``fold_in(rng, state.step)`` (``train_step.py:103``), a function of the seed
@@ -32,7 +34,7 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
-from lap_tpu_torch.training.optimizer import AdamW, global_norm
+from lap_tpu_torch.training.optimizer import AdamW, SGDConfig, global_norm
 from lap_tpu_torch.training.state import TrainState, inference_params
 
 RANDOMNESS_KWARGS = ("noise", "time", "aug_params", "generator")
@@ -73,7 +75,7 @@ class StepFunctions:
 
 def make_step_functions(
     model,
-    optimizer: AdamW,
+    optimizer: AdamW | SGDConfig,
     lr_schedule: Callable[[int], float],
     *,
     ema_decay_for_step: Callable[[int], tuple[float, bool]] | None = None,
@@ -126,14 +128,12 @@ def make_step_functions(
         loss_kwargs = with_randomness(loss_kwargs, step_seed(seed, state.step))
         loss, metrics = model.compute_loss(observation, actions, train=True, **loss_kwargs)
         loss.backward()
-        missing = [n for n, p in zip(state.trainable, params) if p.grad is None]
-        if missing:
-            raise RuntimeError(
-                f"{len(missing)} trainable parameters took no gradient from the loss "
-                f"(first: {missing[0]}); freeze what the loss does not reach"
-            )
         with torch.no_grad():
-            grads = [p.grad for p in params]
+            # A trainable parameter the loss does not reach takes a zero
+            # gradient, as JAX's value_and_grad gives it: its moments decay,
+            # weight decay and EMA still apply (pi0_replicated trains without
+            # the language loss, so expert 0's last layer is never reached).
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
             grad_norm = global_norm(grads)
             optimizer.update_(params, grads, state.opt_state, lr_schedule, grad_norm=grad_norm)
             for p in params:

@@ -5,7 +5,10 @@ The first positional argument picks a named config, and every
 ``--a.b.c value`` flag overrides a (possibly nested) dataclass field, parsed
 according to the field's annotated type: bools, ints, floats, strings, enums
 (by name or value), tuples and lists (JSON or comma-separated), dicts (JSON)
-and ``None`` for optional fields. Nothing is left out.
+and ``None`` for optional fields. Nothing is left out. One addition: a field
+typed as a union of dataclasses (``optimizer: AdamW | SGDConfig``) takes
+the name of one of them (``--optimizer SGDConfig``), which sets that class
+with its defaults; ``--optimizer.momentum 0.5`` then sets its fields.
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ def _parse_value(raw: str, typ):
         if raw.lower() in ("none", "null"):
             if type(None) in args:
                 return None
+        for sub in args:
+            if dataclasses.is_dataclass(sub) and raw.lower() == sub.__name__.lower():
+                return sub()
         for sub in args:
             if sub is type(None):
                 continue

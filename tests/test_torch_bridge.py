@@ -69,7 +69,7 @@ def test_bridge_layouts(jax_params):
 def test_bridge_fails_on_leftover_or_missing_leaves(jax_params):
     flat = flatten(jax_params)
     extra = dict(flat)
-    extra["llm/layers/attn/q_einsum_1/lora_a"] = np.zeros((4, 8, 64, 2), np.float32)
+    extra["llm/layers/attn/q_einsum_1/dora_magnitude"] = np.zeros((4, 8, 64, 2), np.float32)
     with pytest.raises(ValueError, match="not consumed"):
         from_jax_params(unflatten(extra))
     missing = {k: v for k, v in flat.items() if k != "time_mlp_out/bias"}

@@ -598,3 +598,81 @@ def test_quantized_gemma3_feed_forward_takes_group_128(cuda):
         ref = on_cpu(x.cpu())
     rel = ((got.cpu().float() - ref.float()).norm() / ref.float().norm()).item()
     assert rel < 1e-2
+
+
+def _variant_case(cuda, name):
+    import chip_smoke as cs
+
+    if name == "lora_training_step":
+        return cs.lora_training_mask(cuda)
+    return {n: m for n, _, m in cs.variant_kernel_cases(cuda)}[name]
+
+
+@pytest.mark.parametrize("name", ["fast_flow_prefill", "vla0_ar_prefill", "lora_training_step"])
+def test_flash_forward_at_the_variant_cases(cuda, name):
+    """The three flash-forward cases of chip_smoke.py phase 15, built as
+    phase 2 builds them: the FAST flow prefix (B=1, T=S=732), the VLM-only
+    AR prefill right-aligned with 64 decode slots (B=1, T=902, S=966) and the
+    LoRA training step's prefix call on the fake loader's first batch (B=8,
+    the first 692 rows of the joint 708-row mask, its strides); against the
+    plain version at the forward's tolerances, the same bits twice."""
+    from lap_tpu_torch.ops import flash_attention as fa
+
+    mask = _variant_case(cuda, name)
+    b, t, s = mask.shape
+    g = torch.Generator(device=cuda).manual_seed(t)
+    q = torch.randn((b, t, 8, 256), generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((b, s, 1, 256), generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
+    before = fa.launches
+    out, lse = fa.flash_attention_forward(q, k, v, mask)
+    again, lse_again = fa.flash_attention_forward(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 2
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, mask)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=4e-3, rtol=1.6e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+
+
+def test_lora_adapted_quantized_decode_goes_through_the_kernel(cuda):
+    """A LoRA VLM (gemma_300m_lora) beside a plain gemma_300m expert, int8:
+    the adapted weights keep no quantized copy, the vocab head and the
+    expert's MLPs do. An AR step launches the dequant kernel once (the head),
+    and its logits equal those of the same step with the plain version in
+    the kernel's place to the dequant bound (8e-3 |ref| + 1e-4 max |ref|,
+    as ``QUANT_SHAPES``); a flow suffix step launches it twice a layer (the
+    expert's gating and linear)."""
+    from lap_tpu_torch.models.lap_model import LAPConfig
+    from lap_tpu_torch.ops import int8_matmul as i8
+
+    config = LAPConfig(paligemma_variant="gemma_300m_lora", action_expert_variant="gemma_300m",
+                       siglip_variant="dummy", action_horizon=4, max_token_len=32, enable_action_training=True)
+    model = config.create_module(device=cuda, init_seed=0)
+    with torch.no_grad():  # adapters away from their zero init, so that they count
+        for name, p in model.named_parameters():
+            if name.endswith("lora_b"):
+                p.normal_(0.0, 0.02, generator=torch.Generator(device=cuda).manual_seed(1))
+    model.quantize_("int8")
+    quantized = {n.rsplit(".", 1)[0] for n, _ in model.named_buffers() if n.endswith("scale")}
+    assert "llm.embedder" in quantized and "llm.layers.0.mlp.1" in quantized
+    assert not [n for n in quantized if n.startswith("llm.layers.") and n.endswith(".0")]  # the adapted VLM
+    obs = config.fake_obs(1, device=cuda)
+    obs = obs.replace(tokenized_prompt_mask=torch.arange(32, device=cuda)[None] < 20)
+    token = torch.full((1, 1), 7, dtype=torch.int32, device=cuda)
+    state = model.ar_prefill(obs, 2)
+    before = i8.launches
+    got = model.ar_step(state, token).float()
+    torch.cuda.synchronize()
+    assert i8.launches == before + 1
+    kernel = i8.int8_matmul
+    i8.int8_matmul = i8.int8_matmul_plain
+    try:
+        ref = model.ar_step(model.ar_prefill(obs, 2), token).float()
+    finally:
+        i8.int8_matmul = kernel
+    assert bool(((got - ref).abs() <= 8e-3 * ref.abs() + 1e-4 * ref.abs().max()).all())
+    depth = len(model.llm.layers)
+    before = i8.launches
+    model.sample_actions(obs, num_steps=1)
+    torch.cuda.synchronize()
+    assert i8.launches == before + 2 * depth

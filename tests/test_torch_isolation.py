@@ -23,6 +23,7 @@ SERVING_STACK_MODULES = (
     "training.checkpoints",
 )
 GEMMA3_MODULES = ("models.gemma3", "models.lap_gemma3", "training.gemma3_weights")
+FAST_MODULES = ("models.bpe", "models.fast_tokenizer")
 JAX_LIBS = ("jax", "jaxlib", "flax", "optax", "orbax")
 
 
@@ -41,7 +42,7 @@ def test_port_imports_with_jax_blocked():
     mods = proc.stdout.split()
     assert len(mods) >= 12 + len(TRAINING_MODULES)
     assert {f"lap_tpu_torch.{m}" for m in QUANT_SERVING_MODULES + SERVING_STACK_MODULES + ENTRY_POINT_MODULES
-            + GEMMA3_MODULES} <= set(mods)
+            + GEMMA3_MODULES + FAST_MODULES} <= set(mods)
 
 
 def test_serving_stack_imports_without_its_transport_or_a_native_build():

@@ -214,9 +214,14 @@ def test_refusals_of_what_is_not_ported(setup):
                                                quantize="int8")
     with pytest.raises(NotImplementedError, match="item 21"):
         policy_config.create_trained_policy(cfg, "gs://bucket/ckpt", device="cpu", allow_test_vocab=True)
+    # The FAST action tokens are ported: the same checkpoint serves through the FAST transforms.
     fast = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, use_fast=True))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        policy_config.create_trained_policy(fast, setup["ckpt"], device="cpu", allow_test_vocab=True)
+    served = policy_config.create_trained_policy(fast, setup["ckpt"], device="cpu", allow_test_vocab=True)
+    assert np.isfinite(served.infer(robot_request(0))["actions"]).all()
+    # What stays refused: a VLM-only model (no action expert) behind the flow Policy.
+    vlm_only = dataclasses.replace(cfg.model, enable_action_training=False)
+    with pytest.raises(ValueError, match="VLM-only"):
+        port_policy.Policy(vlm_only.create_module(device="cpu", init_seed=0))
 
 
 def test_norm_stats_files_are_shared_with_the_jax_package(tmp_path):

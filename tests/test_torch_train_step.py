@@ -252,9 +252,12 @@ def test_two_train_steps_match_jax(lap_params, freeze_vlm):
 
 
 def test_train_step_raises_when_a_trainable_parameter_takes_no_gradient(lap_params):
-    """A loss that reaches one parameter only: the step refuses to decay and
-    average the rest on gradients it would have to make up, and changes
-    nothing."""
+    """A loss that reaches one parameter only. The step used to refuse; it now
+    follows JAX, whose value_and_grad gives every unreached leaf a zero
+    gradient (a named config needs it: ``pi0_replicated`` trains without the
+    language loss, so expert 0's last layer takes none). Against optax's
+    AdamW on the same zero gradients: the unreached parameters keep zero
+    moments and move by weight decay alone, and the EMA averages them."""
     kw = tiny_lap_config_kwargs(stop_action_to_vlm_grad=True)
     port = load_jax_params(LAP(LAPConfig(**kw), device="cpu", init_seed=None), lap_params)
     steps = make_step_functions(port, port_opt.AdamW(**ADAM), port_opt.CosineDecaySchedule(**SCHED),
@@ -263,10 +266,23 @@ def test_train_step_raises_when_a_trainable_parameter_takes_no_gradient(lap_para
     reached = state.trainable[0]
     port.compute_loss = lambda observation, actions, train, **kw: (state.params[reached].square().sum(), {})
     snapshot = {n: p.detach().clone() for n, p in port.named_parameters()}
-    with pytest.raises(RuntimeError, match=f"{len(state.trainable) - 1} trainable parameters took no gradient"):
-        steps.train_step(state, (None, None))
-    assert state.step == 0 and state.opt_state.count == 0
-    assert all(torch.equal(p, snapshot[n]) for n, p in port.named_parameters())
+    state, metrics = steps.train_step(state, (None, None))
+    assert state.step == 1 and state.opt_state.count == 1
+    tx = jax_opt.AdamW(**ADAM).create(jax_opt.CosineDecaySchedule(**SCHED).create())
+    ref_params = {n: jnp.asarray(v.numpy()) for n, v in snapshot.items() if n in state.trainable}
+    ref_grads = {n: jnp.zeros_like(v) for n, v in ref_params.items()}
+    ref_grads[reached] = jnp.asarray(2 * snapshot[reached].numpy())
+    updates, _ = tx.update(ref_grads, tx.init(ref_params), ref_params)
+    ref = optax.apply_updates(ref_params, updates)
+    now = state.params
+    for i, name in enumerate(state.trainable):
+        np.testing.assert_allclose(now[name].detach().numpy(), np.asarray(ref[name]), rtol=2e-6, atol=1e-9,
+                                   err_msg=name)
+        if name != reached:
+            assert not state.opt_state.mu[i].any() and not state.opt_state.nu[i].any()
+            expected_ema = 0.5 * snapshot[name] + 0.5 * now[name].detach()
+            torch.testing.assert_close(state.ema_params[name], expected_ema, rtol=1e-6, atol=1e-9)
+    assert float(metrics["grad_norm"]) == pytest.approx(2 * snapshot[reached].norm().item(), rel=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -387,3 +403,74 @@ def test_the_embedding_table_gradient_is_the_same_bit_for_bit_every_time():
     upstream = torch.randn((8, 160, 64), generator=gen)
     grads = [torch.autograd.grad(embedder.encode(tokens), embedder.input_embedding, upstream)[0] for _ in range(6)]
     assert all(torch.equal(g, grads[0]) for g in grads[1:])
+
+
+# ---------------------------------------------------------------------------
+# SGD (optax.sgd, as lap_tpu's SGDConfig builds it)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("momentum,nesterov", [(0.9, False), (0.9, True), (0.0, False), (0.0, True)])
+def test_four_sgd_steps_match_optax(momentum, nesterov):
+    """Parameters and the momentum trace after four steps on the same
+    gradients (a warm-up schedule), with momentum on and off and nesterov on
+    and off: atol 1e-7 + rtol 2e-5. No clip and no weight decay, as in JAX:
+    gradients far above the AdamW clip norm pass unscaled."""
+    rng = np.random.default_rng(86)
+    shapes = [(7, 5), (11,), (3, 4, 2)]
+    params = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[(30.0 * rng.standard_normal(s)).astype(np.float32) for s in shapes] for _ in range(4)]
+    sched = dict(warmup_steps=2, peak_lr=1e-2, decay_steps=10, decay_lr=1e-3)
+    tx = jax_opt.SGDConfig(momentum=momentum, nesterov=nesterov).create(jax_opt.CosineDecaySchedule(**sched).create())
+    jparams = [jnp.asarray(p) for p in params]
+    jstate = tx.init(jparams)
+    opt = port_opt.SGDConfig(momentum=momentum, nesterov=nesterov)
+    pparams = [torch.from_numpy(p.copy()) for p in params]
+    pstate = opt.init(pparams)
+    for step_grads in grads:
+        updates, jstate = tx.update([jnp.asarray(g) for g in step_grads], jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        opt.update_(pparams, [torch.from_numpy(g.copy()) for g in step_grads], pstate,
+                    port_opt.CosineDecaySchedule(**sched))
+    assert pstate.count == int(jstate[1].count) == 4
+    for got, ref in zip(pparams, jparams, strict=True):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=1e-7)
+    for got, ref in zip(pstate.trace, jstate[0].trace, strict=True):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=1e-7)
+    assert opt.init([torch.zeros(3, dtype=torch.bfloat16)]).trace[0].dtype == torch.bfloat16
+
+
+def test_sgd_train_steps_match_jax(lap_params):
+    """Two whole training steps with SGD (momentum, nesterov) against
+    lap_tpu's ``train_step`` with ``SGDConfig().create``: loss, grad_norm and
+    the parameters, as ``test_two_train_steps_match_jax`` holds AdamW."""
+    kw = tiny_lap_config_kwargs(stop_action_to_vlm_grad=True)
+    arrays = train_obs_arrays(87, batch=2, valid=[14, 9], cfg_kw=kw)
+    actions = np.random.default_rng(88).standard_normal((2, 4, 7)).astype(np.float32)
+    rng = jax.random.PRNGKey(89)
+    jcfg = JaxLAPConfig(**kw)
+    sgd = dict(momentum=0.8, nesterov=True)
+    tx = jax_opt.SGDConfig(**sgd).create(jax_opt.CosineDecaySchedule(**SCHED).create())
+    fns = jax_train_step.make_step_functions(jcfg.create_module(), tx)
+    params = jax.tree.map(jnp.asarray, lap_params)
+    from lap_tpu.training.state import TrainState as JaxTrainState
+
+    jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=tx.init(params), ema_params=None)
+    jstep = jax.jit(fns.train_step)
+    port = load_jax_params(LAP(LAPConfig(**kw), device="cpu", init_seed=None), lap_params)
+    steps = make_step_functions(port, port_opt.SGDConfig(**sgd), port_opt.CosineDecaySchedule(**SCHED))
+    pstate = steps.init_fn()
+    batch = (port_observation(arrays), torch.from_numpy(actions))
+    for step in range(2):
+        jstate, jmetrics = jstep(rng, jstate, (jax_observation(arrays), jnp.asarray(actions)))
+        draws = jax_loss_randomness(jax.random.fold_in(rng, step), image_keys=jcfg.image_keys, batch=2,
+                                    resolution=(28, 28), action_shape=actions.shape)
+        pstate, pmetrics = steps.train_step(
+            pstate, batch, noise=torch.from_numpy(draws["noise"].copy()),
+            time=torch.from_numpy(draws["time"].copy()), aug_params=port_aug_params(draws["aug"]),
+        )
+        for key in ("loss", "grad_norm", "param_norm"):
+            np.testing.assert_allclose(float(pmetrics[key]), float(jmetrics[key]), rtol=5e-5, err_msg=key)
+    _assert_tree_matches(pstate.params, jstate.params, "params", atol=1e-5)
+    _assert_tree_matches(dict(zip(pstate.trainable, pstate.opt_state.trace, strict=True)), jstate.opt_state[0].trace,
+                         "trace", atol=1e-4)
