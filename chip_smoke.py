@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven paths are driven: LAP-3B flow-matching serving in bf16 (phase 6) and
+Eight paths are driven: LAP-3B flow-matching serving in bf16 (phase 6) and
 with int8/int4 expert MLPs (phase 7), LAP-3B AR language-action serving in
 bf16, int8 and int4 (phase 8), the serving stack from raw robot requests and
 a checkpoint directory (phase 9), the LAP-3B training step (phases 11-12),
@@ -12,7 +12,8 @@ offline eval and serving of the trained step (phase 13), the Gemma3
 family: LAPGemma3-4B flow, AR and quantized serving, its serving stack and
 its training step (phase 14), and the rest of the model surface: FAST
 action tokens, the pi0 branch, the VLM-only model and LoRA training
-(phase 15).
+(phase 15), and training ``lap_libero`` from RLDS episodes through the data
+pipeline (phase 16).
 Each is driven with the launch counters set to 0 just before it and read
 just after. Phases, in order; any failure exits non-zero:
  1. build every CUDA kernel of the paths from the sources in this checkout
@@ -116,7 +117,8 @@ just after. Phases, in order; any failure exits non-zero:
     batch 8, bfloat16 parameters, the VLM frozen: see ``TRAIN_PHASE_DTYPE``
     for why), in a run directory inside the
     checkout that is deleted at the end: ``train.main`` run 1 takes 2 steps
-    and saves (launches: 36 forward and 18 of each backward kernel a step);
+    and saves (a step launches 2 forward and 1 of each backward kernel a
+    layer);
     the loss of the next batch on its state in memory; run 2 resumes and
     takes no step (every state tensor's checksum and the loader cursor equal
     run 1's); run 3 resumes, takes one step (its loss equal to that loss, bit
@@ -174,7 +176,29 @@ just after. Phases, in order; any failure exits non-zero:
     memory, one profiled step). Every mask the phase gives the flash forward is a phase-2 case
     (the FAST and pi0 flow prefixes, the right-aligned FAST and vla0 AR
     prefills, the LoRA step); the forward is timed at the new prefills; a
-    ``variants`` JSON line, and ``launches_variants`` in every kernel row.
+    ``variants`` JSON line, and ``launches_variants`` in every kernel row;
+16. ``lap_libero`` trained from RLDS episodes (the data pipeline: TFRecord
+    shards, the LIBERO standardization, the norm-stats pass, the shuffle
+    buffers and the weighted mixture, the native JPEG decode and resize in
+    the loader's threads, ``Normalize``), at full width with both experts
+    cut to ``TRAIN_PHASE_DEPTH`` layers, bf16 parameters, the VLM frozen,
+    batch 8: four ``libero_*_no_noops`` datasets of ``RLDS_EPISODES``
+    episodes of ``RLDS_EPISODE_STEPS`` steps (256^2 primary and wrist
+    frames, JPEG at quality 95 by the port's encoder, 8 state and 7 action
+    values, one instruction an episode) written to a directory of the
+    checkout, deleted at the end; the write's seconds and bytes, the
+    norm-stats pass, the loader alone (samples/s at batch 8 on 8 threads,
+    the first batch's latency, host ms a sample for decode + resize);
+    ``train.main`` run 1 takes ``RLDS_TRAIN_STEPS`` steps and saves (a step
+    launches 2 forward and 1 of each backward kernel a layer, as phase 13;
+    every flash mask has the ``libero_training_step`` case's shape, the
+    joint [8, 702, 702] call): the median step time, each
+    step's wait for its batch, the peak memory, the step directory's bytes;
+    run 2 resumes and takes one step, its loss equal to the loss of the
+    batch the uninterrupted stream gives next on run 1's state, bit for bit;
+    the same model fed by the ``fake`` repo at the same settings, for the
+    step time; an ``rlds_training`` JSON line, and
+    ``launches_rlds_training`` in the flash rows.
 
 The serving models are freed before the training phases. The last lines of
 standard output are the ``kernels`` JSON line, the card's name and power
@@ -369,6 +393,11 @@ FAST_CONFIG, PI0_CONFIG, VLA0_CONFIG = "pi05_replicated", "pi0_replicated", "vla
 FAST_FLOW_CASE, FAST_AR_CASE, PI0_FLOW_CASE = "fast_flow_prefill", "fast_ar_prefill", "pi0_flow_prefill"
 VLA0_AR_CASE, VLA0_FORCED_CASE = "vla0_ar_prefill", "vla0_teacher_forced_prefill"
 LORA_TRAIN_CASE = "lora_training_step"
+# Phase 16: lap_libero (horizon 10) trained from RLDS episodes; without the
+# stop-gradient its prefix and action rows are one flash call, [B, 702, 702].
+LIBERO_HORIZON = 10
+LIBERO_JOINT = 2 * 256 + 180 + LIBERO_HORIZON
+RLDS_TRAIN_CASE = "libero_training_step"
 VARIANT_REQUESTS = 10
 VARIANT_HOST_SEED = 17
 LORA_TRAIN_STEPS = 4  # the first allocates; the rest are counted and timed
@@ -377,7 +406,7 @@ LORA_TRAIN_STEPS = 4  # the first allocates; the rest are counted and timed
 FWD_DETERMINISM_CASES = (PREFILL_CASE, BATCH2_CASE, BUCKET_CASE, TRAINING_CASE, G3_FLOW_LOCAL, FAST_FLOW_CASE,
                          VLA0_AR_CASE, LORA_TRAIN_CASE)
 # Backward cases run twice to show that two calls give the same bits.
-DETERMINISM_CASES = (TRAINING_CASE, "gqa_group4_h128", G3_TRAIN_CASE)
+DETERMINISM_CASES = (TRAINING_CASE, "gqa_group4_h128", G3_TRAIN_CASE, RLDS_TRAIN_CASE)
 
 
 _START = time.monotonic()
@@ -743,18 +772,22 @@ def flash_forward_bound(mask, q, k, v):
     return max(flops_ms, bytes_ms), "operations" if flops_ms >= bytes_ms else "bytes", flops_ms, bytes_ms
 
 
-def training_mask(batch, device):
-    """The mask of the prefix call of one LAP-3B training step, as the model
-    passes it: the first 692 rows ([B, 692, 708], not contiguous) of the joint
-    [B, 708, 708] mask. Image and prompt tokens bidirectional, the
-    language-action tokens (prompt slot 8 on) causal, the 16 action-token
-    columns all false; the action rows, cut off here, see every key."""
+def training_mask(batch, device, horizon=ACTION_HORIZON, *, joint_call=False):
+    """The mask of one LAP-3B training step's flash call, as the model passes
+    it. With the action expert's gradient stopped at the VLM (``lap``) the
+    prefix is a call of its own: the first 692 rows ([B, 692, 708], not
+    contiguous) of the joint mask. Without (``lap_libero``, horizon 10:
+    ``joint_call``) the joint [B, 702, 702] mask is one call. Image and
+    prompt tokens bidirectional, the language-action tokens (prompt slot 8
+    on) causal, the action-token columns all false for the prefix rows; the
+    action rows see every key."""
     import torch
 
     prefix = prefix_lm_mask([LAP_PREFIX], [PROMPT_LEN - LANGACT_START], LAP_PREFIX, device)
-    joint = torch.nn.functional.pad(prefix, (0, ACTION_HORIZON, 0, ACTION_HORIZON))
+    joint = torch.nn.functional.pad(prefix, (0, horizon, 0, horizon))
     joint[:, LAP_PREFIX:] = True
-    return joint.expand(batch, -1, -1).contiguous()[:, :LAP_PREFIX]
+    joint = joint.expand(batch, -1, -1).contiguous()
+    return joint if joint_call else joint[:, :LAP_PREFIX]
 
 
 def training_queries(batch, generator, device):
@@ -783,6 +816,8 @@ def backward_cases(device):
          g3_training_mask(TRAIN_BATCH, device)),
         (LORA_TRAIN_CASE, (TRAIN_BATCH, LAP_PREFIX, LAP_PREFIX + ACTION_HORIZON, 8, 1, 256),
          lora_training_mask(device)),
+        (RLDS_TRAIN_CASE, (TRAIN_BATCH, LIBERO_JOINT, LIBERO_JOINT, 8, 1, 256),
+         training_mask(TRAIN_BATCH, device, LIBERO_HORIZON, joint_call=True)),
     ]
 
 
@@ -2353,12 +2388,14 @@ def run_training(device):
 TRAIN_PHASE_DTYPE = "bfloat16"
 TRAIN_PHASE_FREEZE_VLM = "true"
 TRAIN_PHASE_STEPS = 2  # run 1 takes these steps and saves at the last
-# Phase 14 writes its 9.6 GB serving checkpoint too: at full depth (two step
-# directories of 16.0 GB) the three phases would write 48.3 GB, the whole
-# 45 GiB. The phase runs the `lap` config at full width with both experts
-# cut to this depth (variants registered as `<name>_depth<N>`): two step
-# directories of ~10 GB.
-TRAIN_PHASE_DEPTH = 9
+# The card's machine stops a call that has written 45 GiB (48.3 GB) to its
+# disk. Phases 13 and 16 each write two step directories (bf16, VLM frozen)
+# of ~3.8 + 0.68 x depth GB (9.91 GB at depth 9, 16.0 GB at 18); phase 9
+# writes 6.7 GB and phase 14 9.6 GB. At depth 9 the four step directories
+# alone would be 39.6 GB (55.9 GB in all); at 2 they are ~20.7 GB (~37 GB in
+# all, under 40). Both phases run their config at full width with both
+# experts cut to this depth (variants registered as `<name>_depth<N>`).
+TRAIN_PHASE_DEPTH = 2
 
 
 def state_checksums(state) -> dict:
@@ -3618,6 +3655,303 @@ def time_variant_flash_forward(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: lap_libero trained from RLDS episodes (the data pipeline)
+# ---------------------------------------------------------------------------
+
+RLDS_DATASETS = ("libero_10_no_noops", "libero_goal_no_noops", "libero_object_no_noops", "libero_spatial_no_noops")
+RLDS_EPISODES = 8  # a dataset
+RLDS_EPISODE_STEPS = 100
+RLDS_FRAME = 256  # primary and wrist frames, JPEG at RLDS_QUALITY
+RLDS_QUALITY = 95
+RLDS_TRAIN_STEPS = 6  # run 1; run 2 resumes and takes one more
+RLDS_LOADER_BATCHES = 24  # the loader alone, after its first batch
+RLDS_DECODE_SAMPLES = 64
+RLDS_TASKS = ("put the bowl on the plate", "open the top drawer", "pick up the ketchup", "turn on the stove",
+              "put the cream cheese in the bowl", "push the plate to the front of the stove",
+              "put the wine bottle on top of the cabinet", "pick up the black bowl next to the cookie box")
+
+
+def rlds_camera_frames(seed: int, wrist: bool) -> list:
+    """One episode's frames of one camera: a colour gradient, a disc that
+    moves across it and mild sensor noise (a real frame's JPEG size, ~15-30
+    KB at quality 95, not 150 KB of noise), encoded by the port's encoder."""
+    import numpy as np
+
+    from lap_tpu_torch.data.episode_pipeline import encode_jpeg
+
+    rng = np.random.default_rng(seed)
+    n = RLDS_FRAME
+    y, x = np.mgrid[0:n, 0:n].astype(np.float32)
+    c0, c1 = rng.uniform(30, 225, (2, 3)).astype(np.float32)
+    ramp = ((x + (0.5 if wrist else 1.0) * y) / (2 * n))[..., None]
+    background = c0 + (c1 - c0) * ramp
+    noise = rng.normal(0.0, 3.0, (2 * n, 2 * n, 3)).astype(np.float32)
+    start, end = rng.uniform(0.2 * n, 0.8 * n, (2, 2))
+    radius = rng.uniform(0.08, 0.16) * n * (2.0 if wrist else 1.0)
+    colour = rng.uniform(0, 255, 3).astype(np.float32)
+    frames = []
+    for t in range(RLDS_EPISODE_STEPS):
+        cy, cx = start + (end - start) * t / RLDS_EPISODE_STEPS
+        img = background.copy()
+        img[(x - cx) ** 2 + (y - cy) ** 2 < radius**2] = colour
+        oy, ox = rng.integers(0, n, 2)
+        img += noise[oy : oy + n, ox : ox + n]
+        frames.append(encode_jpeg(np.clip(img, 0, 255).astype(np.uint8), RLDS_QUALITY))
+    return frames
+
+
+def rlds_episode(dataset: int, index: int, frames: tuple) -> dict:
+    """A LIBERO-shaped raw episode (``libero_dataset_transform``'s input):
+    8 state values (xyz, axis-angle, two gripper joints), 7 action values
+    (deltas, gripper -1/1), one instruction."""
+    import numpy as np
+
+    rng = np.random.default_rng(1000 * dataset + index)
+    t = RLDS_EPISODE_STEPS
+    xyz = np.cumsum(rng.normal(0, 0.01, (t, 3)), axis=0) + rng.uniform(-0.3, 0.3, 3)
+    axis_angle = np.cumsum(rng.normal(0, 0.02, (t, 3)), axis=0) + rng.uniform(-0.5, 0.5, 3)
+    closed = (np.arange(t) > rng.integers(20, 80)).astype(np.float32)
+    gripper = np.stack([0.04 * (1 - closed), -0.04 * (1 - closed)], -1)
+    action = np.concatenate([np.diff(xyz, axis=0, append=xyz[-1:]) * 50, rng.normal(0, 0.1, (t, 3)),
+                             2 * closed[:, None] - 1], -1)
+    return {"steps": {
+        "observation": {"image": frames[0], "wrist_image": frames[1],
+                        "state": np.concatenate([xyz, axis_angle, gripper], -1).astype(np.float32)},
+        "action": action.astype(np.float32),
+        "language_instruction": [RLDS_TASKS[(dataset * RLDS_EPISODES + index) % len(RLDS_TASKS)]] * t,
+    }}
+
+
+def write_rlds_phase_dataset(root: Path) -> dict:
+    """The four libero_*_no_noops datasets, RLDS_EPISODES episodes each, in
+    ``root`` (the frames made and encoded on 8 threads)."""
+    from lap_tpu_torch.data import rlds
+
+    t0 = time.monotonic()
+    jobs = [(d, i, wrist) for d in range(len(RLDS_DATASETS)) for i in range(RLDS_EPISODES) for wrist in (False, True)]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        frames = dict(zip(jobs, pool.map(lambda j: rlds_camera_frames(10_000 * j[0] + 10 * j[1] + j[2], j[2]), jobs)))
+    encode_s = time.monotonic() - t0
+    sizes = [len(f) for cams in frames.values() for f in cams]
+    for d, name in enumerate(RLDS_DATASETS):
+        rlds.write_rlds_dataset(root, name, [rlds_episode(d, i, (frames[d, i, False], frames[d, i, True]))
+                                             for i in range(RLDS_EPISODES)])
+    seconds = time.monotonic() - t0
+    nbytes = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+    return dict(write_s=seconds, encode_s=encode_s, bytes=nbytes, frames=len(sizes),
+                jpeg_kb_mean=sum(sizes) / len(sizes) / 1e3, jpeg_kb_min=min(sizes) / 1e3,
+                jpeg_kb_max=max(sizes) / 1e3)
+
+
+def time_rlds_steps(trainer, data_iter, steps: int) -> dict:
+    """``train.run``'s step clock on a trainer built by hand: each step's wait
+    for its batch, then the step until its metrics are on the host."""
+    from lap_tpu_torch.training.train import reduce_metrics
+
+    waits, step_ms, losses = [], [], []
+    for _ in range(steps):
+        t_wait = time.monotonic()
+        batch = next(data_iter)
+        t0 = time.monotonic()
+        waits.append(t0 - t_wait)
+        trainer.state, metrics = trainer.steps.train_step(trainer.state, batch)
+        losses.append(reduce_metrics(metrics)["loss"])  # syncs the device
+        step_ms.append((time.monotonic() - t0) * 1e3)
+    return dict(data_wait_s=waits, step_ms=step_ms, losses=losses)
+
+
+def run_rlds_training(device):
+    """Phase 16: ``train.main`` with ``lap_libero`` at full width (both
+    experts cut to TRAIN_PHASE_DEPTH layers) from RLDS episodes written to a
+    directory of the checkout: the dataset's write, the norm-stats pass, the
+    loader alone; run 1 takes RLDS_TRAIN_STEPS steps and saves; the loss of
+    the next batch on run 1's state; run 2 resumes and takes one step (its
+    loss equal to that loss, bit for bit: the loader's position restored
+    across the mixture); the same model fed by the ``fake`` repo at the same
+    settings, for the step time. The dataset and the run directory are
+    deleted at the end, also on failure."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from lap_tpu_torch.data import loader as port_loader
+    from lap_tpu_torch.data.episode_pipeline import make_image_decoder
+    from lap_tpu_torch.data.mixer import build_rlds_dataset
+    from lap_tpu_torch.models import gemma
+    from lap_tpu_torch.training import train as port_train
+    from lap_tpu_torch.training.config import cli
+    from lap_tpu_torch.training.train_step import step_generator
+
+    variants = []
+    for base in ("gemma_2b", "gemma_300m"):
+        name = f"{base}_depth{TRAIN_PHASE_DEPTH}"
+        gemma._VARIANTS[name] = {**gemma._VARIANTS[base], "depth": TRAIN_PHASE_DEPTH}
+        variants.append(name)
+    data_dir = Path(tempfile.mkdtemp(prefix=".rlds_phase_", dir=REPO))
+    run_dir = Path(tempfile.mkdtemp(prefix=".train_phase_", dir=REPO))
+    numbers = {"depth": TRAIN_PHASE_DEPTH, "batch": TRAIN_BATCH, "dtype": TRAIN_PHASE_DTYPE}
+    launches = dict(fwd=0, dq=0, dkv=0, delta=0, group_sum=0)
+    try:
+        numbers["dataset"] = write_rlds_phase_dataset(data_dir)
+        ds = numbers["dataset"]
+        log(f"rlds: wrote {len(RLDS_DATASETS)} datasets x {RLDS_EPISODES} episodes x {RLDS_EPISODE_STEPS} steps "
+            f"({ds['frames']} JPEG frames of {RLDS_FRAME}^2 at quality {RLDS_QUALITY}, {ds['jpeg_kb_mean']:.1f} KB "
+            f"mean, {ds['jpeg_kb_min']:.1f}-{ds['jpeg_kb_max']:.1f}) in {ds['write_s']:.2f} s (frames made and "
+            f"encoded on 8 threads in {ds['encode_s']:.2f} s): {ds['bytes']} bytes")
+        config_args = ["lap_libero", "--exp_name", "rlds", "--checkpoint_base_dir", str(run_dir),
+                       "--data.rlds_data_dir", str(data_dir), "--weight_loader.kind", "none",
+                       "--batch_size", str(TRAIN_BATCH), "--param_dtype", TRAIN_PHASE_DTYPE,
+                       "--freeze_vlm", TRAIN_PHASE_FREEZE_VLM, "--save_interval", "1000", "--log_interval", "1",
+                       "--model.paligemma_variant", variants[0], "--model.action_expert_variant", variants[1]]
+        config = cli(config_args)
+        if config.model.action_horizon != LIBERO_HORIZON:
+            raise AssertionError(f"lap_libero's horizon is {config.model.action_horizon}, not {LIBERO_HORIZON}")
+
+        # The norm-stats pass (writes norm_stats_cache/libero_finetune.json).
+        t0 = time.monotonic()
+        dataset, norm_stats = build_rlds_dataset(config)
+        numbers["norm_stats_s"] = time.monotonic() - t0
+        log(f"rlds: norm-stats pass over {len(RLDS_DATASETS) * RLDS_EPISODES} episodes in "
+            f"{numbers['norm_stats_s']:.2f} s; action q99 {norm_stats['actions'].q99[:7].round(4).tolist()}")
+
+        # Decode + resize alone, one thread: host ms a sample (two frames).
+        decode = make_image_decoder(config.data.resize_resolution)
+        raw_iter = iter(dataset)
+        raw = [next(raw_iter) for _ in range(RLDS_DECODE_SAMPLES)]
+        t0 = time.monotonic()
+        for sample in raw:
+            decode(sample)
+        numbers["decode_ms_per_sample"] = (time.monotonic() - t0) * 1e3 / len(raw)
+        del raw, raw_iter, dataset
+
+        # The loader alone: batches of TRAIN_BATCH on its 8 threads, to the card.
+        loader = port_loader.create_data_loader(config, device=device)
+        t0 = time.monotonic()
+        it = iter(loader)
+        obs, actions = next(it)
+        numbers["first_batch_s"] = time.monotonic() - t0
+        if tuple(actions.shape) != (TRAIN_BATCH, LIBERO_HORIZON, 7) or not torch.isfinite(actions).all() or \
+                tuple(obs.images["base_0_rgb"].shape) != (TRAIN_BATCH, 224, 224, 3):
+            raise AssertionError(f"rlds loader: actions {tuple(actions.shape)}, images "
+                                 f"{tuple(obs.images['base_0_rgb'].shape)}")
+        t0 = time.monotonic()
+        for _ in range(RLDS_LOADER_BATCHES):
+            next(it)
+        numbers["loader_samples_per_s"] = RLDS_LOADER_BATCHES * TRAIN_BATCH / (time.monotonic() - t0)
+        it.close()
+        del loader, it, obs, actions
+        log(f"rlds: the loader alone (batch {TRAIN_BATCH}, 8 threads, to the card): first batch in "
+            f"{numbers['first_batch_s']:.3f} s, then {numbers['loader_samples_per_s']:.1f} samples/s over "
+            f"{RLDS_LOADER_BATCHES} batches; decode + resize {numbers['decode_ms_per_sample']:.3f} host ms a sample "
+            f"(two {RLDS_FRAME}^2 JPEGs to 224^2, one thread)")
+
+        def args(*extra):
+            return [*config_args, "--device", str(device), *extra]
+
+        def count(before, what):
+            got = tuple(a - b for a, b in zip(flash_and_backward_launches(), before, strict=True))
+            for key, n in zip(("fwd", "dq", "dkv", "delta", "group_sum"), got, strict=True):
+                launches[key] += n
+            log(f"rlds: {what}: launches (fwd, dq, dkv, delta, group_sum) {got}")
+            return got
+
+        # Run 1: RLDS_TRAIN_STEPS steps from the seed, a save at the last.
+        release()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counters()
+        t0 = time.monotonic()
+        with flash_masks() as seen:
+            first = port_train.main(args("--num_train_steps", str(RLDS_TRAIN_STEPS)))
+        numbers["run1_s"] = time.monotonic() - t0
+        numbers["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        got = count((0,) * 5, f"run 1 ({RLDS_TRAIN_STEPS} steps)")
+        depth = len(first.trainer.model.llm.layers)
+        per_step = (2 * depth, depth, depth, depth, depth)  # as phase 13
+        if got != tuple(RLDS_TRAIN_STEPS * n for n in per_step):
+            raise AssertionError(f"run 1: expected {RLDS_TRAIN_STEPS} x {per_step} launches, got {got}")
+        shapes = {tuple(m.shape) for m in seen}
+        if shapes != {(TRAIN_BATCH, LIBERO_JOINT, LIBERO_JOINT)}:
+            raise AssertionError(f"run 1: the flash forward's masks have shapes {shapes}, not the "
+                                 f"{RLDS_TRAIN_CASE} case's")
+        timings = first.timings
+        numbers.update(step_ms=timings["step_ms"], data_wait_s=timings["data_wait_s"],
+                       median_step_ms=statistics.median(timings["step_ms"][1:]),
+                       median_data_wait_ms=statistics.median(timings["data_wait_s"][1:]) * 1e3,
+                       losses=[first.metrics.get("loss")],
+                       write_bytes=first.checkpoints.last_save["bytes"], write_s=first.checkpoints.last_save["seconds"],
+                       save_blocked_s=first.checkpoints.last_save["blocked_s"],
+                       save_wait_s=timings["save_wait_s"])
+        state = first.trainer.state
+        cursor = first.loader.state_dict()
+        batch = next(first.data_iter)
+        before = flash_and_backward_launches()
+        loss, _ = first.trainer.model.compute_loss(
+            *batch, train=True, generator=step_generator(first.trainer.config.seed, state.step, device))
+        next_loss = loss.item()
+        count(before, "next batch's loss on run 1's state")
+        log(f"rlds: run 1 took {numbers['run1_s']:.1f} s: step ms {[round(t, 1) for t in timings['step_ms']]} "
+            f"(median of steps 2-{RLDS_TRAIN_STEPS} {numbers['median_step_ms']:.1f}), waits for the batch "
+            f"{[round(w * 1e3, 2) for w in timings['data_wait_s']]} ms (median of steps 2-{RLDS_TRAIN_STEPS} "
+            f"{numbers['median_data_wait_ms']:.2f}), peak {numbers['peak_gib']:.2f} GiB; the {len(seen)} flash "
+            f"forward masks of shape {sorted(shapes)}; saved step {state.step} ({numbers['write_bytes']} bytes in "
+            f"{numbers['write_s']:.2f} s; save() blocked {numbers['save_blocked_s']:.2f} s); loader cursor "
+            f"{cursor}; next batch's loss {next_loss!r}")
+        first.close()
+        del first, state, batch, loss
+        release()
+
+        # Run 2: resume and take one step: the loss of the batch the
+        # uninterrupted stream gives next, on run 1's state.
+        reset_launch_counters()
+        t0 = time.monotonic()
+        second = port_train.main(args("--num_train_steps", str(RLDS_TRAIN_STEPS + 1), "--resume", "true"))
+        numbers["run2_s"] = time.monotonic() - t0
+        got = count((0,) * 5, "run 2 (resumed, one step)")
+        if got != per_step:
+            raise AssertionError(f"run 2: expected {per_step} launches, got {got}")
+        resumed_loss = second.metrics["loss"]
+        numbers.update(resumed_loss=resumed_loss, next_loss=next_loss, restore_s=second.timings["restore_s"],
+                       resumed_first_wait_s=second.timings["data_wait_s"][0])
+        log(f"rlds: run 2 restored step {RLDS_TRAIN_STEPS} in {numbers['restore_s']:.2f} s, waited "
+            f"{numbers['resumed_first_wait_s']:.2f} s for its first batch (the stream replayed to its position), "
+            f"first loss {resumed_loss!r} vs run 1's next batch {next_loss!r}")
+        if resumed_loss != next_loss:
+            raise AssertionError("rlds: the resumed run's first loss differs from the uninterrupted stream's")
+        second.close()
+        del second
+        release()
+
+        # The same model, settings and step clock fed by the fake repo.
+        fake_config = cli([*config_args, "--data.repo_id", "fake", "--data.data_mix", "none"])
+        trainer = port_train.build_trainer(fake_config, device=device)
+        fake_iter = iter(port_loader.create_data_loader(fake_config, device=device))
+        reset_launch_counters()
+        fake = time_rlds_steps(trainer, fake_iter, RLDS_TRAIN_STEPS)
+        got = count((0,) * 5, f"the fake repo's {RLDS_TRAIN_STEPS} steps")
+        if got != tuple(RLDS_TRAIN_STEPS * n for n in per_step):
+            raise AssertionError(f"fake feed: expected {RLDS_TRAIN_STEPS} x {per_step} launches, got {got}")
+        fake_iter.close()
+        del trainer, fake_iter
+        release()
+        numbers["fake"] = dict(fake, median_step_ms=statistics.median(fake["step_ms"][1:]),
+                               median_data_wait_ms=statistics.median(fake["data_wait_s"][1:]) * 1e3)
+        log(f"rlds: the fake repo at the same settings: step ms {[round(t, 1) for t in fake['step_ms']]} (median "
+            f"{numbers['fake']['median_step_ms']:.1f} against {numbers['median_step_ms']:.1f} from RLDS), waits "
+            f"{numbers['fake']['median_data_wait_ms']:.2f} ms (RLDS {numbers['median_data_wait_ms']:.2f}); the RLDS "
+            f"loader gives {numbers['loader_samples_per_s']:.1f} samples/s against the "
+            f"{TRAIN_BATCH / numbers['median_step_ms'] * 1e3:.1f} the steps take")
+        if not all(math.isfinite(x) for x in fake["losses"]):
+            raise AssertionError(f"fake feed: losses {fake['losses']}")
+        numbers["launches"] = dict(launches)
+        print(json.dumps({"rlds_training": numbers}), flush=True)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+        shutil.rmtree(run_dir, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
 
     if not (REPO / "lap_tpu_torch" / "csrc").is_dir():
@@ -3682,6 +4016,8 @@ def main() -> int:
     g3_flash, g3_int8, g3_int4 = (g3["launches"][k] for k in ("flash", "int8", "int4"))
     variants = run_variants(device)
     variant_fwd_timing = time_variant_flash_forward(device)
+    release()
+    rlds = run_rlds_training(device)
 
     csrc = "lap_tpu_torch/csrc/"
     kernels = [
@@ -3690,9 +4026,9 @@ def main() -> int:
             replaces="lap_tpu/ops/flash_attention.py:53",
             launches=flow_launches + sum(c[0] for c in quant_flow.values()) + sum(c[0] for c in ar.values())
             + stack["flash"] + train_launches["fwd"] + entry["fwd"] + g3_flash + g3_train["launches"]["fwd"]
-            + variants["fwd"],
+            + variants["fwd"] + rlds["fwd"],
             launches_gemma3_serving=g3_flash, launches_gemma3_training=g3_train["launches"]["fwd"],
-            launches_variants=variants["fwd"], variant_prefills=variant_fwd_timing,
+            launches_variants=variants["fwd"], launches_rlds_training=rlds["fwd"], variant_prefills=variant_fwd_timing,
             launches_flow=flow_launches, launches_quant_flow=sum(c[0] for c in quant_flow.values()),
             launches_ar=sum(c[0] for c in ar.values()), launches_serving_stack=stack["flash"],
             launches_training=train_launches["fwd"], launches_train_entry_points=entry["fwd"],
@@ -3706,8 +4042,9 @@ def main() -> int:
         dict(
             name="flash_attention_bwd_dq", route="cuda", source=csrc + fa.BWD_SOURCE,
             replaces="lap_tpu/ops/flash_attention.py:173",
-            launches=train_launches["dq"] + entry["dq"] + g3_train["launches"]["dq"] + variants["dq"],
-            launches_variants=variants["dq"],
+            launches=train_launches["dq"] + entry["dq"] + g3_train["launches"]["dq"] + variants["dq"]
+            + rlds["dq"],
+            launches_variants=variants["dq"], launches_rlds_training=rlds["dq"],
             launches_training=train_launches["dq"], launches_train_entry_points=entry["dq"],
             launches_gemma3_training=g3_train["launches"]["dq"],
             gemma3_training_shape={k: v for k, v in g3_bwd_timing["dq"].items() if k != "batch"},
@@ -3716,8 +4053,9 @@ def main() -> int:
         dict(
             name="flash_attention_bwd_dkv", route="cuda", source=csrc + fa.BWD_SOURCE,
             replaces="lap_tpu/ops/flash_attention.py:215",
-            launches=train_launches["dkv"] + entry["dkv"] + g3_train["launches"]["dkv"] + variants["dkv"],
-            launches_variants=variants["dkv"],
+            launches=train_launches["dkv"] + entry["dkv"] + g3_train["launches"]["dkv"] + variants["dkv"]
+            + rlds["dkv"],
+            launches_variants=variants["dkv"], launches_rlds_training=rlds["dkv"],
             launches_training=train_launches["dkv"], launches_train_entry_points=entry["dkv"],
             launches_gemma3_training=g3_train["launches"]["dkv"],
             gemma3_training_shape={k: v for k, v in g3_bwd_timing["dkv"].items() if k != "batch"},
@@ -3726,8 +4064,9 @@ def main() -> int:
         dict(
             name="flash_attention_bwd_delta", route="cuda", source=csrc + fa.BWD_SOURCE,
             replaces="lap_tpu/ops/flash_attention.py:270",
-            launches=train_launches["delta"] + entry["delta"] + g3_train["launches"]["delta"] + variants["delta"],
-            launches_variants=variants["delta"],
+            launches=train_launches["delta"] + entry["delta"] + g3_train["launches"]["delta"] + variants["delta"]
+            + rlds["delta"],
+            launches_variants=variants["delta"], launches_rlds_training=rlds["delta"],
             launches_training=train_launches["delta"], launches_train_entry_points=entry["delta"],
             launches_gemma3_training=g3_train["launches"]["delta"],
             gemma3_training_shape={k: v for k, v in g3_bwd_timing["delta"].items() if k != "batch"},
@@ -3736,8 +4075,9 @@ def main() -> int:
         dict(
             name="flash_attention_bwd_group_sum", route="cuda", source=csrc + fa.BWD_SOURCE,
             replaces="lap_tpu/ops/flash_attention.py:340",
-            launches=train_launches["group_sum"] + entry["group_sum"] + g3_train["launches"]["group_sum"] + variants["group_sum"],
-            launches_variants=variants["group_sum"],
+            launches=train_launches["group_sum"] + entry["group_sum"] + g3_train["launches"]["group_sum"]
+            + variants["group_sum"] + rlds["group_sum"],
+            launches_variants=variants["group_sum"], launches_rlds_training=rlds["group_sum"],
             launches_training=train_launches["group_sum"], launches_train_entry_points=entry["group_sum"],
             launches_gemma3_training=g3_train["launches"]["group_sum"],
             gemma3_training_shape={k: v for k, v in g3_bwd_timing["group_sum"].items() if k != "batch"},

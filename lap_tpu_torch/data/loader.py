@@ -6,12 +6,14 @@ card (port of ``lap_tpu/data/loader.py``).
   ``_sample_indices`` with its per-epoch shuffle, ``state_dict`` /
   ``load_state_dict`` (batches seen: exact resume by fast-forward), and
   producer errors that reach the consumer.
-- ``_keep_batch_fields`` (``:287``) and ``create_data_loader`` (``:312``)
-  for ``repo_id == "fake"``. Any other repo raises ``NotImplementedError``:
-  the RLDS pipeline is ROADMAP queue A, item 19.
+- ``_keep_batch_fields`` (``:287``) and ``create_data_loader`` (``:312``):
+  the ``fake`` repo, or the RLDS mixture of ``data.mixer.build_rlds_dataset``
+  (``libero``, ``oxe`` and VQA members) with the frame decoder first and
+  ``Normalize`` on the pipeline's norm stats between the data and the model
+  transforms; ``set_norm_stats`` hands those to the checkpoint's assets.
 
-Placement: one process, rank 0 (``jax.process_count()`` is the constant 1
-until item 13). A batch becomes tensors in pinned host memory (when the
+Placement: one process, rank 0 (``device.process_placement()`` is (0, 1)
+until ROADMAP item 13). A batch becomes tensors in pinned host memory (when the
 loader's device is a card) copied with ``non_blocking=True``; images stay
 uint8 across the copy, as in JAX (``:244-246``), and the model converts them.
 
@@ -24,7 +26,9 @@ runs under one process-wide lock with both globals seeded from (loader seed,
 the sample's position in the stream): a batch is a function of the seed and
 its index, whatever the number of threads, so resume is exact. The parity
 tests run the JAX loader with one thread and the same seeding around each
-sample, and get these batches bit for bit.
+sample, and get these batches bit for bit. The frame decoder draws no
+randomness and runs before the lock (``unseeded_transforms``), so the
+threads decode frames in parallel; the bits are the same.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from collections.abc import Iterator
 import numpy as np
 import torch
 
+from lap_tpu_torch.device import process_placement
 from lap_tpu_torch.models.types import CoTObservation
 
 logger = logging.getLogger(__name__)
@@ -109,7 +114,7 @@ class TransformedDataLoader:
     copies each batch to ``device`` (the CPU when None)."""
 
     dataset: object  # indexable (``__getitem__``) or iterable raw dataset
-    transforms: list  # per-sample callables
+    transforms: list  # per-sample callables, run under the RNG lock
     batch_size: int
     device: torch.device | str | None = None
     seed: int = 0
@@ -118,6 +123,9 @@ class TransformedDataLoader:
     prefetch: int = 2
     num_threads: int = 8
     max_samples: int | None = None
+    # Per-sample callables that draw no randomness (the frame decoder): run
+    # first, outside the RNG lock.
+    unseeded_transforms: tuple = ()
 
     def __post_init__(self):
         self._norm_stats = None
@@ -144,6 +152,8 @@ class TransformedDataLoader:
         return sample
 
     def _transform_at(self, position: int, sample: dict) -> dict:
+        for t in self.unseeded_transforms:
+            sample = t(sample)
         with _GLOBAL_RNG_LOCK:
             seed_global_rngs(sample_seed(self.seed, position))
             return self._transform(sample)
@@ -314,33 +324,51 @@ def _keep_batch_fields(sample: dict) -> dict:
 
 
 def create_data_loader(train_config, *, device=None, split: str = "train") -> TransformedDataLoader:
-    """The loader of a TrainConfig (``loader.py:312``), ``fake`` repo only."""
+    """The loader of a TrainConfig (``loader.py:312``)."""
     data_cfg = train_config.data
     model_cfg = train_config.model
-    if data_cfg.repo_id != "fake":
-        raise NotImplementedError(
-            f"repo_id={data_cfg.repo_id!r}: the RLDS data pipeline is not ported yet (ROADMAP queue A, item 19); "
-            "use --data.repo_id fake"
-        )
     transforms = list(data_cfg.data_transforms(model_cfg).inputs)
-    dataset = FakeRawDataset(
-        resolution=model_cfg.image_resolution,
-        action_dim=model_cfg.action_dim,
-        action_horizon=model_cfg.action_horizon,
-        seed=train_config.seed,
-    )
-    # The fake repo has no norm stats, so no Normalize between the data and
-    # the model transforms (JAX inserts one when the RLDS pipeline gives stats).
+    unseeded = ()
+
+    # Normalization between data and model transforms (reference ordering).
+    norm_stats = None
+    if data_cfg.repo_id == "fake":
+        dataset = FakeRawDataset(
+            resolution=model_cfg.image_resolution,
+            action_dim=model_cfg.action_dim,
+            action_horizon=model_cfg.action_horizon,
+            seed=train_config.seed,
+        )
+    else:
+        from lap_tpu_torch.data.episode_pipeline import make_image_decoder
+        from lap_tpu_torch.data.mixer import build_rlds_dataset
+
+        dataset, norm_stats = build_rlds_dataset(train_config, split=split)
+        # Frames cross the shuffle buffer as encoded bytes; decode (+resize,
+        # wrist rotation) in the loader's threads, ahead of the seeded chain.
+        unseeded = (make_image_decoder(data_cfg.resize_resolution),)
+
+    if norm_stats is not None:
+        from lap_tpu_torch.policies.model_transforms import Normalize
+
+        transforms.append(Normalize(norm_stats, normalization_type=data_cfg.action_proprio_normalization_type))
     transforms.extend(data_cfg.model_transforms(model_cfg, include_outputs=False).inputs)
     transforms.append(_keep_batch_fields)
+
+    # Each process loads its slice of the global batch (one process until
+    # ROADMAP item 13).
+    _, n_proc = process_placement()
+    if train_config.batch_size % n_proc != 0:
+        raise ValueError(f"batch_size {train_config.batch_size} not divisible by process_count {n_proc}")
     loader = TransformedDataLoader(
         dataset=dataset,
         transforms=transforms,
-        batch_size=train_config.batch_size,
+        batch_size=train_config.batch_size // n_proc,
         device=device,
         seed=train_config.seed,
         shuffle=split == "train",
         max_samples=data_cfg.max_samples,
+        unseeded_transforms=unseeded,
     )
-    loader.set_norm_stats(None)
+    loader.set_norm_stats(norm_stats)
     return loader

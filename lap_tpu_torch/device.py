@@ -19,3 +19,10 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "available; pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda")
+
+
+def process_placement() -> tuple[int, int]:
+    """(this process's index, the number of processes) of a run: JAX's
+    ``jax.process_index()`` and ``jax.process_count()``. The port runs one
+    process on one card until ROADMAP item 13, so this is (0, 1)."""
+    return 0, 1

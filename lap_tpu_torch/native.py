@@ -1,13 +1,16 @@
 """Native host ops: ctypes bindings over ``lap_tpu_torch/csrc/lap_native.cpp``.
 
 The port's counterpart of ``lap_tpu/native/__init__.py``, reading the port's
-own copy of the source. These are host ops on the serving path (the
-resize-with-pad of camera frames, the unigram tokenizer's Viterbi loop and
-the FAST codec's BPE merge loop, ``NativeIntBPE``), not device kernels. The library is compiled with ``g++ -O3 -shared`` at first
-use into ``lap_tpu_torch/_build/``, never at import. Every consumer keeps the
-JAX package's pure-Python fallback, so serving works without a toolchain,
-just slower on the host; whether the library loaded is logged once and
-reported by ``status()``.
+own copy of the source. These are host ops, not device kernels: on the
+serving path the resize-with-pad of camera frames, the unigram tokenizer's
+Viterbi loop and the FAST codec's BPE merge loop (``NativeIntBPE``); on the
+data path the JPEG/PNG codec (``decode_image``, ``jpeg_encode``), which the
+JAX package leaves to ``cv2``. The library is compiled with ``g++ -O3
+-shared`` at first use into ``lap_tpu_torch/_build/``, never at import.
+The serving consumers keep the JAX package's pure-Python fallbacks, so
+serving works without a toolchain, just slower on the host; the codec has
+none and raises when the library is unavailable. Whether the library loaded
+is logged once and reported by ``status()``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import ctypes
 import logging
 import os
 import subprocess
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -75,6 +79,15 @@ def get_lib():
         lib.bpe_free.argtypes = [ctypes.c_void_p]
         lib.bpe_encode.restype = ctypes.c_int
         lib.bpe_encode.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+        lib.codec_last_error.restype = ctypes.c_char_p
+        lib.jpeg_header.argtypes = [ctypes.c_char_p, ctypes.c_int64] + [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.jpeg_decode_rgb.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        lib.jpeg_encode.restype = ctypes.c_int64
+        lib.jpeg_encode.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.jpeg_encoded_copy.argtypes = [ctypes.c_void_p]
+        lib.png_unfilter.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+        ]
         _lib = lib
         logger.info("native host ops loaded from %s", LIB_PATH)
     except Exception as e:  # noqa: BLE001
@@ -171,3 +184,114 @@ class NativeUnigramVocab:
     def __del__(self):
         if getattr(self, "_handle", None) and getattr(self, "_lib", None):
             self._lib.vocab_free(self._handle)
+
+
+# ---------------------------------------------------------------------------
+# JPEG/PNG codec (the data pipeline's frames)
+# ---------------------------------------------------------------------------
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+# Channels a PNG colour type carries at 8 bits (grey, RGB, palette, grey+alpha, RGBA).
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _codec_lib():
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError(
+            f"the native codec is unavailable: {LIB_PATH} did not build or load from {SOURCE} (needs g++)"
+        )
+    return lib
+
+
+def _codec_error(lib) -> str:
+    return lib.codec_last_error().decode("utf-8", "replace")
+
+
+def jpeg_decode(data: bytes) -> np.ndarray:
+    """Baseline JPEG bytes -> uint8 [H, W, 3] RGB (grayscale replicated), the
+    bits ``cv2.imdecode(..., IMREAD_COLOR)[..., ::-1]`` gives. Raises
+    ``ValueError`` for a file it does not decode (progressive, arithmetic,
+    12-bit: the message names the SOF marker)."""
+    lib = _codec_lib()
+    data = bytes(data)
+    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if lib.jpeg_header(data, len(data), ctypes.byref(h), ctypes.byref(w), ctypes.byref(c)) != 0:
+        raise ValueError(_codec_error(lib))
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    if lib.jpeg_decode_rgb(data, len(data), out.ctypes.data, h.value, w.value) != 0:
+        raise ValueError(_codec_error(lib))
+    return out
+
+
+def jpeg_encode(img: np.ndarray, quality: int = 95) -> bytes:
+    """uint8 [H, W, 3] RGB (or [H, W] / [H, W, 1] grey) -> baseline JPEG bytes
+    (4:2:0 for colour, Annex K tables scaled by ``quality``)."""
+    lib = _codec_lib()
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"jpeg_encode takes uint8 HW or HWC images, got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    n = lib.jpeg_encode(img.ctypes.data, h, w, c, int(quality))
+    if n < 0:
+        raise ValueError(_codec_error(lib))
+    out = np.empty(n, np.uint8)
+    lib.jpeg_encoded_copy(out.ctypes.data)
+    return out.tobytes()
+
+
+def png_decode(data: bytes) -> np.ndarray:
+    """8-bit non-interlaced PNG -> uint8 [H, W, 3] RGB, as
+    ``cv2.imdecode(..., IMREAD_COLOR)[..., ::-1]``: grey is replicated, a
+    palette looked up, alpha dropped. Other bit depths and interlaced files
+    raise ``ValueError``."""
+    lib = _codec_lib()
+    data = bytes(data)
+    if not data.startswith(_PNG_MAGIC):
+        raise ValueError("not a PNG file")
+    pos, ihdr, palette, idat = 8, None, None, []
+    while pos + 8 <= len(data):
+        length = int.from_bytes(data[pos : pos + 4], "big")
+        kind = data[pos + 4 : pos + 8]
+        body = data[pos + 8 : pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            ihdr = body
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if ihdr is None or len(ihdr) < 13 or not idat:
+        raise ValueError("corrupt PNG data: no IHDR or IDAT chunk")
+    w, h = int.from_bytes(ihdr[0:4], "big"), int.from_bytes(ihdr[4:8], "big")
+    depth, color, interlace = ihdr[8], ihdr[9], ihdr[12]
+    if depth != 8 or color not in _PNG_CHANNELS or interlace != 0:
+        raise ValueError(f"unsupported PNG: bit depth {depth}, colour type {color}, interlace {interlace} "
+                         "(8-bit, non-interlaced only)")
+    if color == 3 and palette is None:
+        raise ValueError("corrupt PNG data: palette image without PLTE")
+    ch = _PNG_CHANNELS[color]
+    raw = zlib.decompress(b"".join(idat))
+    px = np.empty((h, w, ch), np.uint8)
+    if lib.png_unfilter(raw, len(raw), h, w * ch, ch, px.ctypes.data) != 0:
+        raise ValueError(_codec_error(lib))
+    if color == 3:
+        if int(px.max(initial=0)) >= len(palette):
+            raise ValueError("corrupt PNG data: palette index out of range")
+        return palette[px[..., 0]]
+    if ch <= 2:
+        return np.repeat(px[..., :1], 3, axis=2)
+    return np.ascontiguousarray(px[..., :3])
+
+
+def decode_image(data) -> np.ndarray:
+    """JPEG or PNG bytes -> uint8 [H, W, 3] RGB, the format picked by its
+    magic bytes."""
+    data = bytes(data)
+    if data[:2] == b"\xff\xd8":
+        return jpeg_decode(data)
+    if data.startswith(_PNG_MAGIC):
+        return png_decode(data)
+    raise ValueError(f"failed to decode image: neither JPEG nor PNG (starts {data[:8]!r})")

@@ -30,7 +30,7 @@ import math
 import pathlib
 from typing import Literal
 
-from lap_tpu_torch.data.helpers import ActionEncoding, NormalizationType
+from lap_tpu_torch.data.helpers import ActionEncoding, NormalizationType, StateEncoding
 from lap_tpu_torch.models.lap_model import LAPConfig
 from lap_tpu_torch.policies.input_transforms import CoTInputs
 from lap_tpu_torch.policies.model_transforms import (
@@ -49,32 +49,59 @@ from lap_tpu_torch.utils import cli as _cli
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Data configuration (``lap_tpu/training/config.py:35-133``): the
-    fields the serving stack's transforms, the norm stats and the ``fake``
-    loader read, with the JAX defaults. The RLDS pipeline's fields come with
-    it (ROADMAP item 19)."""
+    """Data configuration (``lap_tpu/training/config.py:35-133``): every
+    field, with the JAX defaults, in its order. The loader reads the RLDS
+    pipeline's (the samplers, the sample probabilities, the encodings and
+    horizons, the images, the DROID and bbox inputs, the norm stats)."""
 
     repo_id: str | None = "oxe"
     asset_id: str | None = "oxe"
+    shuffle_buffer_size: int = 1_000_000
     max_samples: int | None = None
     val_max_samples: int | None = None
     val_fraction: float | None = 0.025
-    data_mix: str | None = "oxe_magic_soup"
+    use_wrist_image: bool = True
     wrist_image_dropout_prob: float = 0.1
+    state_encoding: StateEncoding = StateEncoding.POS_EULER
     action_encoding: ActionEncoding = ActionEncoding.EEF_POS
     action_proprio_normalization_type: NormalizationType = NormalizationType.BOUNDS_Q99
+    resize_resolution: tuple[int, int] = (224, 224)
+    force_recompute_stats: bool = False
+    # Cap on episodes per dataset for the norm-stats pass; None = full pass
+    # (the reference default). Set small for quick debug runs.
+    norm_stats_max_episodes: int | None = None
+    # Robot-frame grounding QA (reference vqa/bbox/): directory holding
+    # per-dataset subdirs of JSONL bbox annotations; frames with annotations
+    # become bbox/direction QA samples with probability grounding_prob.
+    bbox_annotations_dir: str | None = None
+    grounding_prob: float = 0.3
+    want_full_determinism: bool = False
+    data_mix: str | None = "oxe_magic_soup"
+    balance_weights: bool = True
+    rlds_data_dir: str = "./data"
+
+    aggressive_aug: bool = False
+    aug_wrist_image: bool = True
     random_base_prob: float = 0.0
     random_mask_prob: float = 0.2
+    not_rotate_wrist_prob: float = 0.0
     use_rough_scale: bool = False
 
     language_action_format_name: str = "verbose_eef_with_rotation"
     transform_strategy: Literal["standard", "vla0"] = "standard"
+    horizon_seconds: tuple[float, ...] = (1.0,)
+
+    max_prediction_horizon: int = 30
+    pred_prob: float = 0.3
+    primary_pred_prob: float = 0.8
 
     enable_diverse_questions: bool = True
     question_type_weights: dict | None = None
     delta_motion_format_weights: dict | None = None
     use_diverse_prompts: bool = True
 
+    direction_prob: float = 0.0
+    droid_dataset_name: Literal["droid", "droid_100"] = "droid"
     gemma3_tokenizer_path: str | None = None
 
     # Injected default prompt at inference when the request has none.
@@ -294,7 +321,14 @@ _FINETUNE_LR = _optimizer.CosineDecaySchedule(warmup_steps=1000, peak_lr=5e-5, d
 
 
 def _libero_data(**kw) -> DataConfig:
-    return DataConfig(repo_id="libero", asset_id="libero", data_mix="libero_finetune", val_fraction=0.0, **kw)
+    return DataConfig(
+        shuffle_buffer_size=100_000,
+        repo_id="libero",
+        asset_id="libero",
+        data_mix="libero_finetune",
+        val_fraction=0.0,
+        **kw,
+    )
 
 
 def _gemma3_model(vlm: str, expert: str, **kw) -> LAPConfig:

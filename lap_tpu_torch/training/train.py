@@ -240,7 +240,10 @@ class RunResult:
     data_iter: object
     checkpoints: _checkpoints.CheckpointManager
     metrics: dict  # the last logged step's (the first step is always logged)
-    timings: dict  # restore_s when the run resumed; save_wait_s, the wait for the last write
+    # restore_s when the run resumed; save_wait_s, the wait for the last
+    # write; data_wait_s, each step's wait for its batch; step_ms, each logged
+    # step's time (from its batch to its synced metrics)
+    timings: dict
     val_iter: object = None
 
     def close(self) -> None:
@@ -303,12 +306,15 @@ def run(config: TrainConfig, *, device=None) -> RunResult:
     reported: dict = {}
     try:
         for step in range(start_step, config.num_train_steps):
+            t_wait = time.monotonic()
             batch = next(data_iter)
             t0 = time.monotonic()
+            timings.setdefault("data_wait_s", []).append(t0 - t_wait)
             trainer.state, step_metrics = trainer.steps.train_step(trainer.state, batch)
             if (step + 1) % config.log_interval == 0 or step == start_step:
                 metrics = reduce_metrics(step_metrics)  # syncs the device
                 metrics["step_ms"] = (time.monotonic() - t0) * 1e3
+                timings.setdefault("step_ms", []).append(metrics["step_ms"])
                 logger.info("step %d %s", step + 1, _format(metrics))
             if val_iter is not None and (step + 1) % config.val_interval == 0:
                 try:

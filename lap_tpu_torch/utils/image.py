@@ -1,9 +1,10 @@
-"""Host-side image utilities (numpy/cv2): resize-with-pad, uint8 conversion.
+"""Host-side image utilities (numpy and the native library): resize-with-pad,
+uint8 conversion.
 
 Parity with openpi.shared.image_tools as consumed by lihzha/lap clients.
 
 Copied from ``lap_tpu/utils/image.py``; its imports point at the port's
-copies.
+copies, and the resize runs in the native library, not cv2.
 """
 
 from __future__ import annotations
@@ -34,36 +35,21 @@ def resized_geometry(h: int, w: int, height: int, width: int) -> tuple[int, int]
 
 
 def resize_with_pad_np(images: np.ndarray, height: int, width: int) -> np.ndarray:
-    """Aspect-preserving resize + center zero-pad, batched or single.
+    """Aspect-preserving resize + center zero-pad of uint8 HWC images,
+    batched or single.
 
-    Dispatches to the C++ op (csrc/lap_native.cpp) for uint8 inputs; falls
-    back to cv2 otherwise."""
+    The C++ op (``csrc/lap_native.cpp``) computes as ``cv2.resize(...,
+    INTER_LINEAR)``, which the JAX package calls, bit for bit; the port
+    never imports cv2. Other dtypes raise ``TypeError`` (the JAX package
+    hands them to cv2)."""
     images = np.asarray(images)
     if images.shape[-3:-1] == (height, width):
         return images
-    try:
-        import cv2  # SIMD resize: fastest path when available
-    except ImportError:
-        if images.dtype == np.uint8 and images.ndim in (3, 4):
-            from lap_tpu_torch import native
+    if images.dtype != np.uint8 or images.ndim not in (3, 4):
+        raise TypeError(f"resize_with_pad_np takes uint8 HWC or NHWC images, got {images.dtype} {images.shape}")
+    from lap_tpu_torch import native
 
-            out = native.resize_with_pad_u8(images, height, width)
-            if out is not None:
-                return out
-        raise
-
-    single = images.ndim == 3
-    if single:
-        images = images[None]
-    h, w = images.shape[-3], images.shape[-2]
-    rh, rw = resized_geometry(h, w, height, width)
-    out = np.zeros((*images.shape[:-3], height, width, images.shape[-1]), dtype=images.dtype)
-    y0 = (height - rh) // 2
-    x0 = (width - rw) // 2
-    flat = images.reshape(-1, h, w, images.shape[-1])
-    out_flat = out.reshape(-1, height, width, images.shape[-1])
-    for i in range(flat.shape[0]):
-        out_flat[i, y0 : y0 + rh, x0 : x0 + rw] = cv2.resize(
-            flat[i], (rw, rh), interpolation=cv2.INTER_LINEAR
-        ).reshape(rh, rw, -1)
-    return out[0] if single else out
+    out = native.resize_with_pad_u8(images, height, width)
+    if out is None:
+        raise RuntimeError(f"the native resize is unavailable: {native.LIB_PATH} did not build or load (needs g++)")
+    return out

@@ -24,6 +24,9 @@ SERVING_STACK_MODULES = (
 )
 GEMMA3_MODULES = ("models.gemma3", "models.lap_gemma3", "training.gemma3_weights")
 FAST_MODULES = ("models.bpe", "models.fast_tokenizer")
+DATA_MODULES = tuple(f"data.{m}" for m in (
+    "tfrecord", "rlds", "rotation", "transform_helpers", "registry", "transforms_oxe", "mixtures", "norm_stats",
+    "episode_pipeline", "bbox", "grounding", "vqa", "droid", "mixer"))
 JAX_LIBS = ("jax", "jaxlib", "flax", "optax", "orbax")
 
 
@@ -42,7 +45,31 @@ def test_port_imports_with_jax_blocked():
     mods = proc.stdout.split()
     assert len(mods) >= 12 + len(TRAINING_MODULES)
     assert {f"lap_tpu_torch.{m}" for m in QUANT_SERVING_MODULES + SERVING_STACK_MODULES + ENTRY_POINT_MODULES
-            + GEMMA3_MODULES + FAST_MODULES} <= set(mods)
+            + GEMMA3_MODULES + FAST_MODULES + DATA_MODULES} <= set(mods)
+
+
+def test_the_data_path_imports_no_image_library():
+    """The card's host has no OpenCV or Pillow: every module of the port,
+    the data pipeline's 14 included, imports with both blocked, and the
+    loader, the decoder and the resize run without them."""
+    blocked = "; ".join(f"sys.modules[{name!r}] = None" for name in (*JAX_LIBS, "cv2", "PIL"))
+    code = (
+        "import sys, pkgutil, importlib; " + blocked + "; "
+        "import numpy as np; import lap_tpu_torch; "
+        "[importlib.import_module(m.name) for m in pkgutil.walk_packages(lap_tpu_torch.__path__, 'lap_tpu_torch.')]; "
+        "from lap_tpu_torch.data import episode_pipeline as ep; "
+        "img = np.random.default_rng(0).integers(0, 255, (40, 52, 3), np.uint8); "
+        "out = ep.make_image_decoder((56, 56))({'observation': {'base_0_rgb': ep.encode_jpeg(img)}}); "
+        "assert out['observation']['base_0_rgb'].shape == (56, 56, 3); "
+        "assert 'cv2' not in sys.modules or sys.modules['cv2'] is None"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_image_library_import_in_source(path):
+    assert not re.search(r"^\s*(from|import)\s+(cv2|PIL)\b", path.read_text(), re.M)
 
 
 def test_serving_stack_imports_without_its_transport_or_a_native_build():

@@ -216,10 +216,37 @@ def test_a_finite_iterable_ends_the_iterator():
     assert [len(o.state) for o, _ in loader] == [4, 4, 2]
 
 
-def test_non_fake_repo_raises_naming_the_data_pipeline():
-    cfg = port_config.get_config("lap")
-    with pytest.raises(NotImplementedError, match="item 19"):
-        port_loader.create_data_loader(cfg)
+@pytest.fixture(scope="module")
+def written_mixtures(tmp_path_factory):
+    """The 16 members of ``oxe_magic_soup`` and the four of
+    ``libero_finetune``, three fabricated episodes each
+    (``tests/test_transforms_oxe.py``), written as RLDS directories."""
+    import test_transforms_oxe as tto
+    from lap_tpu.data import mixtures, rlds
+
+    root = tmp_path_factory.mktemp("mixtures")
+    alias = {"bridge_v2_oxe": "bridge_dataset", "libero_goal_no_noops": "libero_spatial_no_noops",
+             "libero_object_no_noops": "libero_spatial_no_noops", "libero_10_no_noops": "libero_spatial_no_noops"}
+    for mix in ("oxe_magic_soup", "libero_finetune"):
+        for name, _ in mixtures.OXE_NAMED_MIXTURES[mix]:
+            rlds.write_rlds_dataset(root, name, [tto.FABRICATORS[alias.get(name, name)]() for _ in range(3)])
+    return root
+
+
+@pytest.mark.parametrize("name", [c.name for c in port_config._CONFIGS])
+def test_named_config_loader_builds_on_a_written_mixture(name, written_mixtures):
+    """Every named config's data settings build a loader (``fake``, or the
+    RLDS mixture with its norm stats and the frame decoder); none raises."""
+    cfg = port_config.get_config(name)
+    cfg = dataclasses.replace(cfg, batch_size=2, data=dataclasses.replace(
+        cfg.data, rlds_data_dir=str(written_mixtures), shuffle_buffer_size=16))
+    loader = port_loader.create_data_loader(cfg)
+    if cfg.data.repo_id == "fake":
+        assert loader.norm_stats is None and not loader.unseeded_transforms
+        return
+    assert {"actions", "state"} <= set(loader.norm_stats)
+    assert loader.norm_stats["actions"].mean.shape == (cfg.model.action_dim,)
+    assert len(loader.unseeded_transforms) == 1 and loader.batch_size == 2
 
 
 def test_loader_copies_uint8_batches_to_the_device():

@@ -8,9 +8,11 @@ base frame, the empty-image mask) or from a fresh ``np.random.default_rng()``
 side's call and ``default_rng()`` is replaced by a seeded generator.
 
 Tolerances: none. Token ids, masks, images, states and strings must be
-identical, arrays bit for bit. The native resize is held bit for bit against
-the JAX package's library and within the tolerance of ``tests/test_native.py``
-(median 1, mean 2 levels of 255) against cv2, its fallback.
+identical, arrays bit for bit. The port's native resize computes as cv2's
+INTER_LINEAR, which the JAX package's ``resize_with_pad_np`` calls: it is held
+bit for bit against cv2 and against that function, and within the tolerance
+of ``tests/test_native.py`` (median 1, mean 2 levels of 255) against the JAX
+package's own native library (a double-precision bilinear).
 """
 
 import random
@@ -120,7 +122,9 @@ def test_native_resize_matches_the_jax_library_and_cv2(libs, shape):
 
     img = np.random.default_rng(0).integers(0, 255, shape, np.uint8)
     got = native.resize_with_pad_u8(img, 56, 56)
-    np.testing.assert_array_equal(got, jax_native.resize_with_pad_u8(img, 56, 56))
+    jax_lib = jax_native.resize_with_pad_u8(img, 56, 56)
+    diff = np.abs(got.astype(int) - jax_lib.astype(int))
+    assert np.median(diff) <= 1 and diff.mean() < 2.0
     if img.ndim == 4:
         np.testing.assert_array_equal(got[0], native.resize_with_pad_u8(img[0], 56, 56))
         img, got = img[0], got[0]
@@ -129,8 +133,7 @@ def test_native_resize_matches_the_jax_library_and_cv2(libs, shape):
     ref = np.zeros((56, 56, 3), np.uint8)
     y0, x0 = (56 - rh) // 2, (56 - rw) // 2
     ref[y0 : y0 + rh, x0 : x0 + rw] = cv2.resize(img, (rw, rh), interpolation=cv2.INTER_LINEAR)
-    diff = np.abs(got.astype(int) - ref.astype(int))
-    assert np.median(diff) <= 1 and diff.mean() < 2.0
+    np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(image.resize_with_pad_np(img, 56, 56), jax_image.resize_with_pad_np(img, 56, 56))
 
 

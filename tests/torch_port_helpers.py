@@ -213,3 +213,29 @@ def private_jax_native(build_dir):
             setattr(jax_native, k, v)
 
     return restore
+
+
+def assert_same_tree(got, want, path="root"):
+    """Two host trees (dicts, lists, tuples, numpy arrays, scalars, strings,
+    bytes) equal exactly: the same keys, lengths, dtypes and values, NaNs in
+    the same places. Callables compare by name."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), (path, sorted(got), sorted(want))
+        for k in want:
+            assert_same_tree(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert type(got) is type(want) and len(got) == len(want), (path, type(got), len(got), len(want))
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same_tree(g, w, f"{path}[{i}]")
+    elif isinstance(want, np.ndarray):
+        assert isinstance(got, np.ndarray) and got.dtype == want.dtype and got.shape == want.shape, (
+            path, getattr(got, "dtype", None), want.dtype, getattr(got, "shape", None), want.shape)
+        np.testing.assert_array_equal(got, want, err_msg=path)
+    elif callable(want):
+        assert getattr(got, "__name__", None) == getattr(want, "__name__", None), path
+    elif isinstance(want, float) and want != want:
+        assert got != got, path
+    else:
+        assert type(got) is type(want) and got == want, (path, got, want)
