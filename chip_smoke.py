@@ -12,8 +12,9 @@ offline eval and serving of the trained step (phase 13), the Gemma3
 family: LAPGemma3-4B flow, AR and quantized serving, its serving stack and
 its training step (phase 14), and the rest of the model surface: FAST
 action tokens, the pi0 branch, the VLM-only model and LoRA training
-(phase 15), and training ``lap_libero`` from RLDS episodes through the data
-pipeline (phase 16).
+(phase 15), training ``lap_libero`` from RLDS episodes through the data
+pipeline (phase 16), and parallelism past one card (phase 17: tensor-parallel
+serving, FSDP and tensor + sequence parallel training through ``train.main``).
 Each is driven with the launch counters set to 0 just before it and read
 just after. Phases, in order; any failure exits non-zero:
  1. build every CUDA kernel of the paths from the sources in this checkout
@@ -199,6 +200,41 @@ just after. Phases, in order; any failure exits non-zero:
     the same model fed by the ``fake`` repo at the same settings, for the
     step time; an ``rlds_training`` JSON line, and
     ``launches_rlds_training`` in the flash rows.
+17. parallelism (``lap_tpu_torch/parallel/``), in spawned worlds of two
+    ranks that share the one card over gloo (NCCL refuses two ranks on one
+    device; ``PARALLEL_BACKEND``), each rank on ``cuda:0``, every rank
+    stopped before the phase goes on; phase 2 holds the flash kernels at one
+    rank's heads under tp = 2 (``tp2_*`` cases: LAP's prefill and training
+    call at 4 query heads on 1 KV head, LAPGemma3-4B's 800-row prefill at 4
+    on 2). a, inside phase 9 (its checkpoint directory):
+    ``create_trained_policy(..., tp=2)`` on each rank, flow requests on rank
+    0 with rank 1 in ``serve_followers``, 18 flash launches a rank and
+    request, actions within ``PATH_REL_TOL`` of the one-process policy of
+    the same directory and seeds; ``create_trained_policy_ar`` for
+    ``TP_AR_TOKENS`` greedy tokens, equal to one process's before the
+    first near tie, and the logits teacher-forced with one process's tokens
+    within twice one process's flash-vs-einsum floor (at least
+    ``PATH_REL_TOL``); latency printed as two ranks on one card. b:
+    LAPGemma3-4B from seed 0 sharded in memory by ``copy_shards`` (what
+    ``restore_params_sharded`` runs), one flow request at explicit noise
+    against one process's model, 34 flash launches a rank. c: ``train.main``
+    at ``lap``'s width, depth ``TRAIN_PHASE_DEPTH``, f32 parameters + AdamW
+    + EMA, global batch ``PARALLEL_TRAIN_BATCH``, ``PARALLEL_TRAIN_STEPS``
+    steps, in one process, on a 1-rank NCCL world, at ``--fsdp_devices 2``
+    and at ``--tp_devices 2 --sequence_parallel true``: each logged loss
+    and grad norm against one process's (``PARALLEL_LOSS_REL_TOL``,
+    ``PARALLEL_GRAD_NORM_REL_TOL``), every leaf of the first step's
+    gradient (``gradient_leaves``: ``GRAD_LEAF_REL_TOL`` of its norm plus
+    ``GRAD_LEAF_FLOOR`` of the whole gradient's), peak memory a rank; these
+    runs write no step directory (the disk budget); then one step under FSDP
+    at phase 13's settings, saved, restored into one process: every state
+    tensor bit-equal to the sharded run's whole tensor, and the next batch's
+    loss over each data rank's rows bit-equal to that rank's own. b and c's
+    two-rank runs share one world; each world starts while the parent runs
+    the one-process references. d: ``fsdp_sharding(..., log=True)`` of
+    lap_gemma3_12b and lap_gemma3_27b on the meta device at (fsdp 4) and
+    (fsdp 2, tp 2). A ``parallel`` JSON line; ``launches_parallel`` in every
+    flash row.
 
 The serving models are freed before the training phases. The last lines of
 standard output are the ``kernels`` JSON line, the card's name and power
@@ -403,10 +439,12 @@ VARIANT_HOST_SEED = 17
 LORA_TRAIN_STEPS = 4  # the first allocates; the rest are counted and timed
 
 # Forward cases run twice to show that two calls give the same bits.
+# Phase 17's per-rank shapes under tp = 2 (phase 2 holds them).
+TP_PREFILL_CASE, TP_G3_PREFILL_CASE, TP_TRAIN_CASE = "tp2_prefill", "tp2_gemma3_flow_prefill", "tp2_training_step"
 FWD_DETERMINISM_CASES = (PREFILL_CASE, BATCH2_CASE, BUCKET_CASE, TRAINING_CASE, G3_FLOW_LOCAL, FAST_FLOW_CASE,
-                         VLA0_AR_CASE, LORA_TRAIN_CASE)
+                         VLA0_AR_CASE, LORA_TRAIN_CASE, TP_PREFILL_CASE, TP_G3_PREFILL_CASE, TP_TRAIN_CASE)
 # Backward cases run twice to show that two calls give the same bits.
-DETERMINISM_CASES = (TRAINING_CASE, "gqa_group4_h128", G3_TRAIN_CASE, RLDS_TRAIN_CASE)
+DETERMINISM_CASES = (TRAINING_CASE, "gqa_group4_h128", G3_TRAIN_CASE, RLDS_TRAIN_CASE, TP_TRAIN_CASE)
 
 
 _START = time.monotonic()
@@ -599,6 +637,11 @@ def kernel_cases(device):
         *((name, (1, G3_PROMPT_LEN, g3[name].shape[-1], n3, k3, h3), g3[name])
           for name in (G3_FLOW_LOCAL, G3_FLOW_GLOBAL, G3_AR_LOCAL, G3_AR_GLOBAL)),
         *variant_kernel_cases(device),
+        # One rank's heads under tp = 2 (phase 17): LAP's prefill with 4 query
+        # heads on its 1 KV head, LAPGemma3-4B's with 4 on 2.
+        (TP_PREFILL_CASE, (1, LAP_PREFIX, LAP_PREFIX, 8 // TP_RANKS, 1, 256), path_mask),
+        (TP_G3_PREFILL_CASE, (1, G3_PROMPT_LEN, g3[G3_FLOW_LOCAL].shape[-1], n3 // TP_RANKS, k3 // TP_RANKS, h3),
+         g3[G3_FLOW_LOCAL]),
     ]
 
 
@@ -790,13 +833,13 @@ def training_mask(batch, device, horizon=ACTION_HORIZON, *, joint_call=False):
     return joint if joint_call else joint[:, :LAP_PREFIX]
 
 
-def training_queries(batch, generator, device):
+def training_queries(batch, generator, device, heads: int = 8):
     """Queries (or an output gradient's worth of values) laid out as the model
     lays them out for the prefix call: the first 692 rows of the joint
-    [B, 708, 8, 256] tensor, so the batch stride is that of 708 rows."""
+    [B, 708, heads, 256] tensor, so the batch stride is that of 708 rows."""
     import torch
 
-    joint = torch.randn((batch, LAP_PREFIX + ACTION_HORIZON, 8, 256), generator=generator, device=device)
+    joint = torch.randn((batch, LAP_PREFIX + ACTION_HORIZON, heads, 256), generator=generator, device=device)
     return joint.to(torch.bfloat16)[:, :LAP_PREFIX]
 
 
@@ -818,6 +861,9 @@ def backward_cases(device):
          lora_training_mask(device)),
         (RLDS_TRAIN_CASE, (TRAIN_BATCH, LIBERO_JOINT, LIBERO_JOINT, 8, 1, 256),
          training_mask(TRAIN_BATCH, device, LIBERO_HORIZON, joint_call=True)),
+        # The training call of one rank under tp = 2: 4 query heads on 1 KV head.
+        (TP_TRAIN_CASE, (TRAIN_BATCH, LAP_PREFIX, LAP_PREFIX + ACTION_HORIZON, 8 // TP_RANKS, 1, 256),
+         training_mask(TRAIN_BATCH, device)),
     ]
 
 
@@ -872,14 +918,14 @@ def check_flash_backward(device):
     g = torch.Generator(device=device).manual_seed(4)
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "delta": 0.0, "group_sum": 0.0}
     for name, (b, t, s, n, kh, h), mask in backward_cases(device):
-        if name in (TRAINING_CASE, LORA_TRAIN_CASE):
-            q = training_queries(b, g, device)
+        if name in (TRAINING_CASE, LORA_TRAIN_CASE, TP_TRAIN_CASE):
+            q = training_queries(b, g, device, n)
         else:
             q = torch.randn((b, t, n, h), generator=g, device=device).to(torch.bfloat16)
         k = torch.randn((b, s, kh, h), generator=g, device=device).to(torch.bfloat16)
         v = torch.randn((b, s, kh, h), generator=g, device=device).to(torch.bfloat16)
         # The output gradient arrives as a slice of the joint tensor's too.
-        dout = (training_queries(b, g, device) if name in (TRAINING_CASE, LORA_TRAIN_CASE)
+        dout = (training_queries(b, g, device, n) if name in (TRAINING_CASE, LORA_TRAIN_CASE, TP_TRAIN_CASE)
                 else torch.randn((b, t, n, h), generator=g, device=device).to(torch.bfloat16))
         out, lse = fa.flash_attention_forward(q, k, v, mask)
         grads = fa.flash_attention_backward(q, k, v, mask, out, lse, dout)
@@ -1877,6 +1923,8 @@ def run_serving_stack(model, config, device):
             stats["token_bucket_rel_err"] = err
             del recorder, bucketed, untrimmed
             release()
+        # Phase 17a serves this checkpoint directory over two ranks.
+        launches["parallel"] = run_tp_serving(ckpt_dir, config, device)
     stats["launches"] = launches
     stats["native"] = native.status()
     print(json.dumps({"serving_stack": stats}), flush=True)
@@ -2398,21 +2446,24 @@ TRAIN_PHASE_STEPS = 2  # run 1 takes these steps and saves at the last
 TRAIN_PHASE_DEPTH = 2
 
 
-def state_checksums(state) -> dict:
+def state_checksums(state, whole=None) -> dict:
     """Two int64 sums of every tensor's bits (plain, and weighted by the
     position mod 65521, so that a swap of two values shows): parameters,
     the optimizer's buffers (Adam mu and nu), EMA, with the step and the
-    optimizer's count."""
+    optimizer's count. ``whole(name, shard)`` makes a sharded state's
+    tensors whole first (a collective every rank joins), one at a time."""
     import torch
 
-    tensors = {f"params/{n}": p for n, p in state.params.items()}
+    tensors = {f"params/{n}": (n, p) for n, p in state.params.items()}
     for kind, buffers in state.opt_state.buffers().items():
-        tensors.update({f"{kind}/{n}": t for n, t in zip(state.trainable, buffers, strict=True)})
-    tensors.update({f"ema/{n}": t for n, t in (state.ema_params or {}).items()})
+        tensors.update({f"{kind}/{n}": (n, t) for n, t in zip(state.trainable, buffers, strict=True)})
+    tensors.update({f"ema/{n}": (n, t) for n, t in (state.ema_params or {}).items()})
     sums = []
     chunk = 1 << 26
     with torch.no_grad():
-        for t in tensors.values():
+        for name, t in tensors.values():
+            if whole is not None:
+                t = whole(name, t)
             flat = t.detach().reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
             plain = torch.zeros((), dtype=torch.int64, device=t.device)
             weighted = torch.zeros((), dtype=torch.int64, device=t.device)
@@ -3952,6 +4003,806 @@ def run_rlds_training(device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: parallelism past one card
+# ---------------------------------------------------------------------------
+
+# Two ranks share the one card of this run: NCCL refuses two ranks on one
+# device ("Duplicate GPU detected"), and gloo runs every collective the port
+# needs on CUDA tensors (all-reduce, broadcast, all-gather, reduce-scatter,
+# FSDP2's unshard and reduce-scatter), but crashes in DTensor's functional
+# collectives, which the port does not call (PERF.md, the probe of the card).
+PARALLEL_BACKEND = "gloo"
+SINGLE_RANK_BACKEND = "nccl"  # a 1-rank world runs the same entry points on NCCL
+PARALLEL_DEVICE = "cuda:0"  # every rank's device: the one card
+TP_RANKS = 2
+PARALLEL_TIMEOUT_S = 900
+TP_FLOW_REQUESTS = 4
+TP_AR_REQUESTS = 2
+TP_AR_TOKENS = 16
+AR_TP_FLOOR_FACTOR = 2.0  # tp's AR logits may differ from one process's by twice its flash-vs-einsum floor
+PARALLEL_TRAIN_STEPS = 3
+# A sharded run against one process of the same seed. Its activations are
+# bf16, so each rank's partial products (4 of 8 heads, half the hidden dim, 4
+# of 8 rows) are rounded to bf16 before they are summed, where one process
+# rounds the whole product once: that, not the order of the sums, moves the
+# loss by ~1e-5 and the grad norm by ~2e-4 (measured on an H100).
+PARALLEL_LOSS_REL_TOL = 1e-4
+PARALLEL_GRAD_NORM_REL_TOL = 1e-3
+# Every leaf of the first step's gradient (the same parameters in both runs):
+# its squared norm and its projections on GRAD_PROJECTIONS Gaussian directions
+# seeded by the leaf's name. A leaf's difference from one process (the larger
+# of its norm's and of the projections' root-mean-square difference, an
+# estimate of the l2 norm of the difference) must stay within
+# GRAD_LEAF_REL_TOL of its norm plus GRAD_LEAF_FLOOR of the whole gradient's
+# (leaves whose exact gradient is zero, as SigLIP's key biases, hold rounding
+# alone). A sum over the ranks left out drops one rank's share of the leaf:
+# about half its norm or more.
+GRAD_PROJECTIONS = 3
+GRAD_LEAF_REL_TOL = 0.2
+GRAD_LEAF_FLOOR = 1e-4
+PARALLEL_TRAIN_BATCH = 8  # the global batch: 4 rows a data rank under FSDP
+PARALLEL_TRAIN_DTYPE = "float32"  # the recipe's parameters; activations stay the config's bf16
+# The 12B and 27B plans are arithmetic on the meta device: no rank holds them.
+PLANNED_CONFIGS = ("lap_gemma3_12b", "lap_gemma3_27b")
+PLANNED_MESHES = ({"fsdp": 4}, {"fsdp": 2, "tp": 2})
+
+
+def _parallel_rank(rank, world, port, backend, job, args, setup, out, inbox) -> None:
+    """One rank of a spawned world: joins the process group, builds (loads)
+    the kernels, waits for the rest of its arguments on ``inbox``, runs
+    ``job(rank, world, *args, *rest)`` and reports its result."""
+    import traceback
+
+    try:
+        sys.path.insert(0, str(REPO))
+        import torch
+        import torch.distributed as dist
+
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(world),
+                          MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        if setup is not None:
+            module, name = setup.split(":")
+            getattr(__import__(module), name)()
+        if torch.cuda.is_available():
+            torch.cuda.set_device(0)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            from lap_tpu_torch import cuda_build
+            from lap_tpu_torch.ops import flash_attention as fa
+            from lap_tpu_torch.ops import int4_matmul as i4
+            from lap_tpu_torch.ops import int8_matmul as i8
+
+            for source in (fa.SOURCE, fa.BWD_SOURCE, i8.SOURCE, i4.SOURCE):
+                cuda_build.build(source)  # built by the parent: found on disk
+        dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+        rest = inbox.get()
+        result = globals()[job](rank, world, *args, *rest)
+        dist.barrier()
+        dist.destroy_process_group()
+        out.put((rank, True, result))
+    except BaseException:  # noqa: BLE001 - reported to the parent, which fails the phase
+        out.put((rank, False, traceback.format_exc()))
+
+
+def jobs_in_turn(rank, world, jobs):
+    """Several jobs in one spawned world (a world takes ~20 s to start): each
+    ``(job, args)`` in turn, the card's memory given back between them."""
+    results = []
+    for job, args in jobs:
+        results.append(globals()[job](rank, world, *args))
+        release()
+    return results
+
+
+@contextlib.contextmanager
+def parallel_world(world: int, backend: str, job: str, *args, setup: str | None = None,
+                   timeout: float = PARALLEL_TIMEOUT_S):
+    """Spawn ``world`` ranks (all on card 0) at once; they start up (~20 s)
+    while the caller works on. Yields ``results(*rest)``, which lets the
+    ranks run ``job(rank, world, *args, *rest)`` and returns their results by
+    rank. A rank that fails fails the
+    phase with its traceback; a job past ``timeout`` is killed and fails it.
+    Every rank is stopped when the block ends."""
+    import queue
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    out, inbox = ctx.Queue(), ctx.Queue()
+    procs = [ctx.Process(target=_parallel_rank, args=(r, world, port, backend, job, args, setup, out, inbox))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+
+    def results(*rest) -> list:
+        for _ in procs:
+            inbox.put(rest)
+        results, errors, deadline = {}, {}, time.monotonic() + timeout
+        while len(results) + len(errors) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise AssertionError(f"parallel: {job} on {world} ranks did not finish in {timeout:.0f} s")
+            try:
+                rank, ok, value = out.get(timeout=min(left, 5.0))
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead and not errors:
+                    raise AssertionError(f"parallel: a rank of {job} died with exit code {dead[0]}") from None
+                if errors:
+                    break
+                continue
+            (results if ok else errors)[rank] = value
+        if errors:
+            raise AssertionError("\n".join(f"parallel: rank {r} of {job} failed:\n{v}" for r, v in sorted(errors.items())))
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 5.0))
+        return [results[r] for r in range(world)]
+
+    try:
+        yield results
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def _recording_runs(policy):
+    """Wrap the policy's model calls: each call's prepared batch, its (flash,
+    int8, int4) launches and what it sampled."""
+    calls = []
+    run = policy._run
+
+    def recorded(batch, step):
+        before = serving_launches()
+        sampled = run(batch, step)
+        calls.append(dict(batch=batch, launches=tuple(a - b for a, b in zip(serving_launches(), before)),
+                          sampled=sampled))
+        return sampled
+
+    policy._run = recorded
+    return calls
+
+
+def forced_logits(model, batch, forced):
+    """f32 logits [S + 1, V] of the AR prefill and of S decode steps fed the
+    tokens ``forced`` [1, S] (teacher forcing), for one prepared batch."""
+    import torch
+
+    from lap_tpu_torch.models.types import CoTObservation
+
+    obs = CoTObservation.from_dict(batch, device=model.device)
+    forced = torch.as_tensor(forced, dtype=torch.int32, device=model.device)
+    with torch.inference_mode():
+        state = model.ar_prefill(obs, forced.shape[1])
+        logits = [state.logits.float()]
+        for i in range(forced.shape[1]):
+            logits.append(model.ar_step(state, forced[:, i:i + 1]).float())
+    return torch.cat(logits, dim=1)[0].cpu().numpy()
+
+
+def tp_serving_job(rank, world, ckpt_dir, requests, host_seeds, device, ar_forced):
+    """Phase 17a on each rank: ``create_trained_policy(..., tp=world)`` from
+    phase 9's checkpoint directory, flow requests on rank 0 (the other ranks
+    follow), then ``create_trained_policy_ar`` for TP_AR_TOKENS greedy tokens
+    and, on every rank, the teacher-forced logits of ``ar_forced`` (the
+    one-process policy's tokens)."""
+    import numpy as np
+    import torch
+
+    from lap_tpu_torch.policies import policy as port_policy
+    from lap_tpu_torch.policies import policy_config
+    from lap_tpu_torch.training.config import get_config
+
+    lap = get_config("lap")
+    kw = dict(default_prompt=DEFAULT_PROMPT, allow_test_vocab=True, tp=world, device=device)
+    result = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    flow = policy_config.create_trained_policy(lap, ckpt_dir, **kw)
+    torch.cuda.synchronize()
+    result["restore_s"] = time.monotonic() - t0
+    result["resident_gb"] = torch.cuda.memory_allocated() / 2**30
+    calls = _recording_runs(flow)
+    if rank == 0:
+        actions, ms = [], []
+        for req, seed in zip(requests, host_seeds, strict=True):
+            np.random.seed(seed)
+            t0 = time.monotonic()
+            actions.append(flow.infer(req)["actions"])
+            ms.append((time.monotonic() - t0) * 1e3)
+        port_policy.stop_followers(flow)
+        result.update(actions=actions, infer_ms=ms)
+    else:
+        port_policy.serve_followers(flow)
+    result["flow_launches"] = [c["launches"] for c in calls]
+    del flow, calls
+    release()
+    ar = policy_config.create_trained_policy_ar(lap, ckpt_dir, max_decoding_steps=TP_AR_TOKENS, **kw)
+    calls = _recording_runs(ar)
+    if rank == 0:
+        ms = []
+        for req, seed in zip(requests[:TP_AR_REQUESTS], host_seeds[:TP_AR_REQUESTS], strict=True):
+            np.random.seed(seed)
+            t0 = time.monotonic()
+            ar.infer(req)
+            ms.append((time.monotonic() - t0) * 1e3)
+        port_policy.stop_followers(ar)
+        result.update(ar_ms=ms, tokens=[np.asarray(c["sampled"]) for c in calls])
+    else:
+        port_policy.serve_followers(ar)
+    result["ar_launches"] = [c["launches"] for c in calls]
+    # Teacher forcing on every rank (each call is collective).
+    logits = [forced_logits(ar._model, batch, tokens) for batch, tokens in ar_forced]
+    if rank == 0:
+        result["forced_logits"] = logits
+    result["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return result
+
+
+def _step_rel(got, ref) -> float:
+    """The largest per-step relative l2 difference of two [S, V] logit arrays."""
+    import numpy as np
+
+    return float(max(np.linalg.norm(got[i] - ref[i]) / np.linalg.norm(ref[i]) for i in range(len(ref))))
+
+
+def _margins(logits):
+    """Per step: the top-1 minus top-2 logit."""
+    import numpy as np
+
+    top2 = np.partition(logits, -2, axis=-1)[:, -2:]
+    return top2[:, 1] - top2[:, 0]
+
+
+def run_tp_serving(ckpt_dir: Path, config, device) -> dict:
+    """Phase 17a: tp = 2 flow and AR serving of LAP-3B at full width from
+    phase 9's checkpoint directory (two ranks on one card), against the
+    one-process policies of the same directory and seeds: flow actions
+    within PATH_REL_TOL; the AR logits teacher-forced with one process's
+    greedy tokens within PATH_REL_TOL a step, and the tp policy's own greedy
+    tokens equal to one process's at every step before the first whose top-2
+    logit margin is within twice the step's largest logit difference (a
+    near tie that the two paths' roundings may break either way; random
+    weights make them common)."""
+    import numpy as np
+
+    from lap_tpu_torch.policies import policy_config
+    from lap_tpu_torch.training.config import get_config
+
+    t_phase = time.monotonic()
+    lap = get_config("lap")
+    requests = [raw_request(900 + i, config) for i in range(TP_FLOW_REQUESTS)]
+    seeds = [30 + i for i in range(TP_FLOW_REQUESTS)]
+    # The one-process references first (the ranks start up meanwhile): the
+    # same directory, seeds and requests.
+    with parallel_world(TP_RANKS, PARALLEL_BACKEND, "tp_serving_job", ckpt_dir, requests, seeds,
+                        PARALLEL_DEVICE) as tp_world:
+        kw = dict(default_prompt=DEFAULT_PROMPT, allow_test_vocab=True, device=device)
+        single = policy_config.create_trained_policy(lap, ckpt_dir, **kw)
+        ref_actions = []
+        for req, seed in zip(requests, seeds, strict=True):
+            np.random.seed(seed)
+            ref_actions.append(single.infer(req)["actions"])
+        del single
+        release()
+        single_ar = policy_config.create_trained_policy_ar(lap, ckpt_dir, max_decoding_steps=TP_AR_TOKENS, **kw)
+        ref_calls = _recording_runs(single_ar)
+        for req, seed in zip(requests[:TP_AR_REQUESTS], seeds[:TP_AR_REQUESTS], strict=True):
+            np.random.seed(seed)
+            single_ar.infer(req)
+        ar_forced = [(c["batch"], np.asarray(c["sampled"])) for c in ref_calls]
+        ref_logits = [forced_logits(single_ar._model, batch, tokens) for batch, tokens in ar_forced]
+        # The floor: one process's logits with einsum attention against its
+        # flash attention (two roundings of the same function).
+        single_ar._model.set_attn_impl("xla")
+        floor = max(_step_rel(forced_logits(single_ar._model, batch, tokens), ref)
+                    for (batch, tokens), ref in zip(ar_forced, ref_logits, strict=True))
+        single_ar._model.set_attn_impl(single_ar._model.config.attn_impl)
+        del single_ar, ref_calls
+        release()
+        ranks = tp_world(ar_forced)
+    got = ranks[0]
+    depth = 18
+    for rank, r in enumerate(ranks):
+        if r["flow_launches"] != [(depth, 0, 0)] * TP_FLOW_REQUESTS or r["ar_launches"] != [(depth, 0, 0)] * \
+                TP_AR_REQUESTS:
+            raise AssertionError(f"tp serving: rank {rank} launched (flash, int8, int4) {r['flow_launches']} a flow "
+                                 f"request and {r['ar_launches']} an AR request; expected {depth} flash each")
+    errs = [float(np.linalg.norm(a - r) / np.linalg.norm(r)) for a, r in zip(got["actions"], ref_actions,
+                                                                            strict=True)]
+    logit_tol = max(PATH_REL_TOL, AR_TP_FLOOR_FACTOR * floor)
+    logit_errs, agree, ties = [], [], []
+    for (_, ref_tokens), ref, tp_logits, tp_tokens in zip(ar_forced, ref_logits, got["forced_logits"],
+                                                          got["tokens"], strict=True):
+        step_err = np.abs(tp_logits - ref).max(axis=-1)
+        logit_errs.append(_step_rel(tp_logits, ref))
+        margin = _margins(ref)[:-1]  # the margin of the logits each greedy token was picked from
+        near = np.nonzero(margin <= 2 * step_err[:-1])[0]
+        first_tie = int(near[0]) if near.size else TP_AR_TOKENS
+        ties.append(first_tie)
+        n = min(first_tie, ref_tokens.shape[1], tp_tokens.shape[1])
+        agree.append(bool(np.array_equal(tp_tokens[:, :n], ref_tokens[:, :n])))
+    numbers = dict(
+        backend=PARALLEL_BACKEND, ranks=TP_RANKS, flow_rel_err=errs, ar_forced_logits_rel_err=logit_errs,
+        ar_logits_floor=floor, ar_logits_tol=logit_tol,
+        ar_greedy_tokens_equal_before_first_near_tie=agree, ar_first_near_tie=ties,
+        ar_tokens_all_equal=[bool(np.array_equal(t, r)) for t, (_, r) in zip(got["tokens"], ar_forced, strict=True)],
+        flash_launches_per_rank=sum(c[0] for c in got["flow_launches"] + got["ar_launches"]),
+        flash_launches=sum(c[0] for r in ranks for c in r["flow_launches"] + r["ar_launches"]),
+        restore_s=[r["restore_s"] for r in ranks], resident_gb_per_rank=[r["resident_gb"] for r in ranks],
+        peak_gb_per_rank=[r["peak_gb"] for r in ranks], flow_infer_ms=got["infer_ms"], ar_infer_ms=got["ar_ms"],
+        seconds=time.monotonic() - t_phase)
+    log(f"parallel 17a: tp={TP_RANKS} LAP-3B serving over {PARALLEL_BACKEND}, restored per rank in "
+        f"{[round(x, 2) for x in numbers['restore_s']]} s ({[round(x, 2) for x in numbers['resident_gb_per_rank']]} "
+        f"GiB resident a rank); flow actions vs one process rel_err={[f'{e:.3e}' for e in errs]} (tol "
+        f"{PATH_REL_TOL}); AR teacher-forced logits vs one process rel_err={[f'{e:.3e}' for e in logit_errs]} (tol "
+        f"{logit_tol:.3e}: the larger of {PATH_REL_TOL} and {AR_TP_FLOOR_FACTOR} x the floor {floor:.3e}, one "
+        f"process's einsum against its flash attention); greedy tokens equal to one process's before the first near tie: {agree} (first near tie "
+        f"at step {ties} of {TP_AR_TOKENS}; all {TP_AR_TOKENS} equal: {numbers['ar_tokens_all_equal']}); {depth} "
+        f"flash launches per rank and request; latency, two ranks on one card (for information only, it says "
+        f"nothing of tp over two cards): flow infer_ms={[round(x, 1) for x in got['infer_ms']]} AR infer_ms="
+        f"{[round(x, 1) for x in got['ar_ms']]}; peak GiB a rank {[round(x, 2) for x in numbers['peak_gb_per_rank']]}")
+    if max(errs) > PATH_REL_TOL or max(logit_errs) > logit_tol or not all(agree):
+        raise AssertionError(f"tp serving: flow rel_err {errs}, AR logits rel_err {logit_errs} (tol {logit_tol}) "
+                             f"or greedy tokens before a near tie {agree}")
+    return numbers
+
+
+def tp_gemma3_job(rank, world, request, noise, device):
+    """Phase 17b on each rank: LAPGemma3-4B from seed 0, its slices copied
+    from the whole weights by ``checkpoints.copy_shards`` (what
+    ``restore_params_sharded`` runs), one flow request at explicit noise."""
+    import dataclasses
+
+    import torch
+
+    from lap_tpu_torch.models.types import CoTObservation
+    from lap_tpu_torch.parallel import mesh as mesh_lib
+    from lap_tpu_torch.parallel.sharding import parallelize_
+    from lap_tpu_torch.policies.policy import _stack_batch
+    from lap_tpu_torch.training.checkpoints import copy_shards
+    from lap_tpu_torch.training.config import get_config
+
+    config = dataclasses.replace(get_config(G3_CONFIG).model, stop_action_to_vlm_grad=False)
+    torch.cuda.reset_peak_memory_stats()
+    whole = config.create_module(device=device, init_seed=0)
+    weights = {n: p.detach() for n, p in whole.named_parameters()}
+    model = config.create_module(device="meta", init_seed=None)
+    parallelize_(model, mesh_lib.make_mesh(1, world, device_type=torch.device(device).type))
+    model.to_empty(device=device)
+    copy_shards(model, dict(model.named_parameters()), weights, "gemma3 weights")
+    del whole, weights
+    release()
+    resident = torch.cuda.memory_allocated() / 2**30
+    obs = CoTObservation.from_dict(_stack_batch([request]), device=device)
+    reset_launch_counters()
+    actions = model.sample_actions(obs, noise=torch.from_numpy(noise).to(device))
+    launches = serving_launches()
+    return dict(actions=actions.float().cpu().numpy(), launches=launches, resident_gb=resident,
+                peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def tp_gemma3_noise(config):
+    import numpy as np
+
+    return np.random.default_rng(17).standard_normal((1, config.action_horizon, config.action_dim)).astype(np.float32)
+
+
+def tp_gemma3_reference(config, request, noise, device) -> dict:
+    """Phase 17b's one-process reference: LAPGemma3-4B from seed 0, one flow
+    request at explicit noise."""
+    import torch
+
+    from lap_tpu_torch.models.types import CoTObservation
+    from lap_tpu_torch.policies.policy import _stack_batch
+
+    model = config.create_module(device=device, init_seed=0)
+    depth = len(model.llm.layers)
+    actions = model.sample_actions(CoTObservation.from_dict(_stack_batch([request]), device=device),
+                                   noise=torch.from_numpy(noise).to(device)).float().cpu().numpy()
+    del model
+    release()
+    return dict(actions=actions, depth=depth)
+
+
+def check_tp_gemma3(ranks, ref: dict) -> dict:
+    """Phase 17b: tp = 2 flow serving of LAPGemma3-4B at full width (4 query
+    and 2 KV heads a rank) against one process's model of the same seed."""
+    import numpy as np
+
+    rel = float(np.linalg.norm(ranks[0]["actions"] - ref["actions"]) / np.linalg.norm(ref["actions"]))
+    launches = [r["launches"] for r in ranks]
+    depth = ref["depth"]
+    numbers = dict(rel_err=rel, launches_per_rank=launches, resident_gb_per_rank=[r["resident_gb"] for r in ranks],
+                   peak_gb_per_rank=[r["peak_gb"] for r in ranks])
+    log(f"parallel 17b: tp={TP_RANKS} LAPGemma3-4B flow request: actions vs one process rel_err={rel:.3e} (tol "
+        f"{PATH_REL_TOL}); (flash, int8, int4) launches per rank {launches} (expected {depth} flash); GiB resident a "
+        f"rank {[round(r['resident_gb'], 2) for r in ranks]}, peak {[round(r['peak_gb'], 2) for r in ranks]}")
+    if rel > PATH_REL_TOL or any(c != (depth, 0, 0) for c in launches):
+        raise AssertionError(f"tp gemma3: rel_err {rel} or launches {launches}")
+    return numbers
+
+
+def _train_args(run_dir: Path, exp: str, device: str, *extra) -> list[str]:
+    """``train.main``'s command line of phase 17c: the ``lap`` config at full
+    width, both experts cut to TRAIN_PHASE_DEPTH layers, fake data."""
+    return ["lap", "--exp_name", exp, "--checkpoint_base_dir", str(run_dir), "--data.repo_id", "fake",
+            "--data.data_mix", "none", "--batch_size", str(PARALLEL_TRAIN_BATCH), "--save_interval", "100000",
+            "--log_interval", "1", "--model.paligemma_variant", f"gemma_2b_depth{TRAIN_PHASE_DEPTH}",
+            "--model.action_expert_variant", f"gemma_300m_depth{TRAIN_PHASE_DEPTH}", "--device", device, *extra]
+
+
+def _register_depth_variants() -> None:
+    from lap_tpu_torch.models import gemma
+
+    for base in ("gemma_2b", "gemma_300m"):
+        gemma._VARIANTS[f"{base}_depth{TRAIN_PHASE_DEPTH}"] = {**gemma._VARIANTS[base], "depth": TRAIN_PHASE_DEPTH}
+
+
+@contextlib.contextmanager
+def _steps_logged():
+    """The (loss, grad_norm) of every step the training loop logs."""
+    import logging
+
+    records = []
+
+    class Handler(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if msg.startswith("step ") and " val " not in msg:
+                fields = dict(kv.split("=", 1) for kv in msg.split()[2:] if "=" in kv)
+                records.append((float(fields["loss"]), float(fields["grad_norm"])))
+
+    handler = Handler(level=logging.INFO)
+    train_logger = logging.getLogger("lap_tpu_torch.train")
+    train_logger.addHandler(handler)
+    level = train_logger.level
+    train_logger.setLevel(logging.INFO)
+    try:
+        yield records
+    finally:
+        train_logger.removeHandler(handler)
+        train_logger.setLevel(level)
+
+
+@contextlib.contextmanager
+def _no_saves():
+    """Runs whose step directory nothing reads write none: the card's host
+    stops a call that has written 45 GiB, and one step of the f32 recipe is
+    23.6 GB at depth 2."""
+    from lap_tpu_torch.training import checkpoints
+
+    save = checkpoints.CheckpointManager.save
+    checkpoints.CheckpointManager.save = lambda self, step, state, assets=None: None
+    try:
+        yield
+    finally:
+        checkpoints.CheckpointManager.save = save
+
+
+def gradient_leaves(model, named: dict) -> dict:
+    """Per leaf of a step's gradient ``named`` (each rank's shards): its
+    squared norm and its projections on GRAD_PROJECTIONS Gaussian directions
+    of the whole leaf's shape, seeded by its name, each rank projecting its
+    shard on its slice of them (``local_shard``), summed over the ranks that
+    hold distinct shards (``counted_once``): the same numbers for any
+    placement of the same gradient."""
+    import zlib
+
+    import torch
+    import torch.distributed as dist
+
+    from lap_tpu_torch.parallel.sharding import counted_once, local, local_shard
+
+    par = getattr(model, "parallel", None)
+    rows = []
+    with torch.no_grad():
+        for name, grad in named.items():
+            g = local(grad).float()
+            row = torch.zeros(1 + GRAD_PROJECTIONS, dtype=torch.float64, device=g.device)
+            if counted_once(model, name):
+                shape = par.plan.placements[name].shape if par is not None else tuple(g.shape)
+                row[0] = g.square().sum(dtype=torch.float64)
+                for j in range(GRAD_PROJECTIONS):
+                    gen = torch.Generator(device=g.device).manual_seed(zlib.crc32(f"{name}#{j}".encode()))
+                    part = local_shard(model, name, torch.randn(shape, generator=gen, device=g.device))
+                    if part.shape != g.shape:
+                        raise AssertionError(f"gradient leaf {name}: shard {tuple(g.shape)}, slice {tuple(part.shape)}")
+                    row[1 + j] = (g * part).sum(dtype=torch.float64)
+            rows.append(row)
+        table = torch.stack(rows)
+        if par is not None:
+            dist.all_reduce(table)
+    return dict(zip(named, table.cpu().numpy(), strict=True))
+
+
+@contextlib.contextmanager
+def _first_gradient():
+    """``gradient_leaves`` of the first gradient that a training step takes
+    the norm of (step 0's: the same parameters in every run of a seed)."""
+    from lap_tpu_torch.training import train as port_train
+    from lap_tpu_torch.training import train_step
+
+    made, one, sharded = port_train.make_step_functions, train_step.global_norm, train_step.parallel_norm
+    out, models = {}, []
+
+    def make(model, *args, **kwargs):
+        models.append(model)
+        return made(model, *args, **kwargs)
+
+    def one_norm(tensors):
+        tensors = list(tensors)
+        if "leaves" not in out:
+            names = [n for n, p in models[-1].named_parameters() if p.requires_grad]
+            out["leaves"] = gradient_leaves(models[-1], dict(zip(names, tensors, strict=True)))
+        return one(tensors)
+
+    def sharded_norm(model, named):
+        if "leaves" not in out:
+            out["leaves"] = gradient_leaves(model, named)
+        return sharded(model, named)
+
+    port_train.make_step_functions, train_step.global_norm, train_step.parallel_norm = make, one_norm, sharded_norm
+    try:
+        yield out
+    finally:
+        port_train.make_step_functions, train_step.global_norm, train_step.parallel_norm = made, one, sharded
+
+
+def leaf_differences(got: dict, ref: dict) -> dict:
+    """Per gradient leaf: the estimate of ``|g - g_ref|`` (the larger of the
+    norms' difference and the projections' root-mean-square difference), the
+    reference leaf's norm, and the leaf's bound."""
+    import numpy as np
+
+    total = float(np.sqrt(sum(r[0] for r in ref.values())))
+    out = {}
+    for name, r in ref.items():
+        g = got[name]
+        norm = float(np.sqrt(r[0]))
+        diff = max(abs(float(np.sqrt(g[0])) - norm), float(np.sqrt(np.mean((g[1:] - r[1:]) ** 2))))
+        out[name] = (diff, norm, GRAD_LEAF_REL_TOL * norm + GRAD_LEAF_FLOOR * total)
+    return out
+
+
+def _rows_of(observation, rows: slice):
+    """The rows ``rows`` of a batched observation, contiguous (as a rank's
+    loader gives them)."""
+    import dataclasses
+
+    import torch
+
+    def take(v):
+        if isinstance(v, dict):
+            return {k: take(x) for k, x in v.items()}
+        return v[rows].contiguous() if isinstance(v, torch.Tensor) and v.dim() > 0 else v
+
+    return dataclasses.replace(observation, **{f.name: take(getattr(observation, f.name))
+                                               for f in dataclasses.fields(observation)})
+
+
+def train_job(rank, world, argv, checks):
+    """Phase 17c on each rank: ``train.main(argv)`` (the process group is
+    up, so it builds the mesh and shards); the logged steps, the first step's
+    gradient leaves and this rank's peak memory; with ``checks`` the whole
+    state's checksums, the next batch's loss (this rank's share, summed over
+    the data ranks) and this rank's loss over its own rows alone."""
+    import torch
+    import torch.distributed as dist
+
+    from lap_tpu_torch.parallel import mesh as mesh_lib
+    from lap_tpu_torch.parallel.sharding import full_tensor
+    from lap_tpu_torch.training import train as port_train
+    from lap_tpu_torch.training.train_step import _take_rows, step_generator
+
+    _register_depth_variants()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counters()
+    t0 = time.monotonic()
+    with _steps_logged() as steps, _first_gradient() as first, (contextlib.nullcontext() if checks else _no_saves()):
+        run = port_train.main(argv)
+    result = dict(steps=steps, seconds=time.monotonic() - t0, launches=flash_and_backward_launches(),
+                  peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+                  mesh=mesh_lib.mesh_shape(run.trainer.model.parallel.mesh), leaves=first["leaves"])
+    if checks:
+        state, model = run.trainer.state, run.trainer.model
+        result["checksums"] = state_checksums(state, whole=lambda n, t: full_tensor(model, n, t))
+        result["write_bytes"] = (run.checkpoints.last_save or {}).get("bytes")
+        observation, actions = next(run.data_iter)
+        par = model.parallel
+        _, count = par.data_placement
+        rows = actions.shape[0] * count
+        gen = step_generator(run.trainer.config.seed, state.step, model.device)
+        draws = _take_rows(model.loss_randomness(rows, gen), mesh_lib.data_sharding(par.mesh, rows))
+        with torch.no_grad():
+            with par.scope():
+                loss, _ = model.compute_loss(observation, actions, train=True, **draws)
+            # Outside the mesh's scope the loss is the mean over this rank's
+            # rows alone (FSDP still gathers the parameters).
+            own, _ = model.compute_loss(observation, actions, train=True, **draws)
+        total = loss.detach().to(torch.float64)
+        dist.all_reduce(total, group=mesh_lib.data_group(par.mesh))
+        result["next_loss"] = float(total)
+        result["own_rows_loss"] = own.item()
+    run.close()
+    keep = ("peak_gb", "launches", "own_rows_loss")
+    return result if rank == 0 else {k: v for k, v in result.items() if k in keep}
+
+
+def run_parallel_training(device) -> dict:
+    """Phases 17b and 17c. 17b: tp = 2 LAPGemma3-4B flow serving. 17c:
+    ``train.main`` at ``lap``'s full width (both experts cut to
+    TRAIN_PHASE_DEPTH layers) with the recipe's f32 parameters, AdamW and
+    EMA, global batch PARALLEL_TRAIN_BATCH, PARALLEL_TRAIN_STEPS steps: in
+    one process, on a 1-rank NCCL world, at --fsdp_devices 2 and at
+    --tp_devices 2 --sequence_parallel true (two gloo ranks on one card),
+    each held to one process by its losses, grad norms and the first step's
+    gradient leaves; then a step directory written under FSDP (phase 13's
+    bf16 and frozen VLM, for the disk budget) restored into one process.
+    The two-rank runs of 17b and 17c share one spawned world."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from lap_tpu_torch.training import train as port_train
+    from lap_tpu_torch.training.config import get_config
+    from lap_tpu_torch.training.train_step import _take_rows, step_generator
+
+    t_phase = time.monotonic()
+    g3_config = dataclasses.replace(get_config(G3_CONFIG).model, stop_action_to_vlm_grad=False)
+    g3_request_, g3_noise = g3_request(0, g3_config), tp_gemma3_noise(g3_config)
+    _register_depth_variants()
+    run_dir = Path(tempfile.mkdtemp(prefix=".train_phase_", dir=REPO))
+    numbers = {}
+    steps = str(PARALLEL_TRAIN_STEPS)
+    recipe = ("--num_train_steps", steps, "--param_dtype", PARALLEL_TRAIN_DTYPE)
+    runs = {
+        "nccl_1_rank": (1, SINGLE_RANK_BACKEND, []),
+        "fsdp2": (TP_RANKS, PARALLEL_BACKEND, ["--fsdp_devices", str(TP_RANKS)]),
+        "tp2_sp": (TP_RANKS, PARALLEL_BACKEND, ["--tp_devices", str(TP_RANKS), "--sequence_parallel", "true"]),
+    }
+    # The two-rank world: 17b, the two sharded comparisons, the FSDP save.
+    small = ("--num_train_steps", "1", "--param_dtype", TRAIN_PHASE_DTYPE, "--freeze_vlm", TRAIN_PHASE_FREEZE_VLM)
+    jobs = [("tp_gemma3_job", (g3_request_, g3_noise, PARALLEL_DEVICE))]
+    jobs += [("train_job", (_train_args(run_dir, name, PARALLEL_DEVICE, *recipe, *runs[name][2]), False))
+             for name in ("fsdp2", "tp2_sp")]
+    jobs.append(("train_job", (_train_args(run_dir, "fsdp_saved", PARALLEL_DEVICE, *small, "--fsdp_devices",
+                                           str(TP_RANKS)), True)))
+    # Both worlds start up while this process runs the references.
+    try:
+        with parallel_world(1, SINGLE_RANK_BACKEND, "train_job",
+                            _train_args(run_dir, "nccl_1_rank", PARALLEL_DEVICE, *recipe), False) as nccl_world, \
+                parallel_world(TP_RANKS, PARALLEL_BACKEND, "jobs_in_turn", jobs) as shared_world:
+            g3_ref = tp_gemma3_reference(g3_config, g3_request_, g3_noise, device)
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            with _steps_logged() as ref, _first_gradient() as first, _no_saves():
+                port_train.main(_train_args(run_dir, "one_process", str(device), *recipe)).close()
+            release()
+            ref_leaves = first["leaves"]
+            numbers["one_process"] = dict(steps=ref, seconds=time.monotonic() - t0,
+                                          peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+            got_runs = {"nccl_1_rank": nccl_world()}
+            t0 = time.monotonic()
+            by_rank = shared_world()
+            world_s = time.monotonic() - t0
+        by_job = [[by_rank[r][j] for r in range(TP_RANKS)] for j in range(len(jobs))]
+        numbers["tp_gemma3"] = check_tp_gemma3(by_job[0], g3_ref)
+        got_runs.update(fsdp2=by_job[1], tp2_sp=by_job[2])
+        failed = []  # every run is logged before the phase fails
+        for name, (world, backend, _) in runs.items():
+            ranks = got_runs[name]
+            got = ranks[0]
+            loss_rel = [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got["steps"], ref, strict=True)]
+            norm_rel = [abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(got["steps"], ref, strict=True)]
+            leaves = leaf_differences(got["leaves"], ref_leaves)
+            over = sorted(n for n, (d, _, bound) in leaves.items() if d > bound)
+            worst = sorted(leaves, key=lambda n: leaves[n][0] / leaves[n][2], reverse=True)[:3]
+            rel = {n: d / norm for n, (d, norm, _) in leaves.items() if norm > 0}
+            rel_worst = sorted(rel, key=rel.get, reverse=True)[:3]
+            numbers[name] = dict(backend=backend, mesh=got["mesh"], steps=got["steps"], loss_rel=loss_rel,
+                                 grad_norm_rel=norm_rel, peak_gb_per_rank=[r["peak_gb"] for r in ranks],
+                                 launches_per_rank=[r["launches"] for r in ranks], seconds=got["seconds"],
+                                 grad_leaves=len(leaves), grad_leaves_over_bound=over,
+                                 grad_leaf_worst={n: dict(diff=leaves[n][0], norm=leaves[n][1], bound=leaves[n][2])
+                                                  for n in worst},
+                                 grad_leaf_rel_worst={n: rel[n] for n in rel_worst})
+            log(f"parallel 17c: {name} ({world} rank(s), {backend}, mesh {got['mesh']}): (loss, grad_norm) a step "
+                f"{got['steps']} vs one process {ref}: loss rel {[f'{x:.2e}' for x in loss_rel]} (tol "
+                f"{PARALLEL_LOSS_REL_TOL}), grad_norm rel {[f'{x:.2e}' for x in norm_rel]} (tol "
+                f"{PARALLEL_GRAD_NORM_REL_TOL}); the first step's {len(leaves)} gradient leaves: {len(over)} over "
+                f"their bound ({GRAD_LEAF_REL_TOL} of the leaf's norm + {GRAD_LEAF_FLOOR} of the whole gradient's), "
+                f"the nearest to it " + ", ".join(f"{n} {leaves[n][0]:.3e} of {leaves[n][1]:.3e} (bound "
+                                                   f"{leaves[n][2]:.3e})" for n in worst)
+                + "; the largest relative to their norm " + ", ".join(f"{n} {rel[n]:.2e}" for n in rel_worst)
+                + f"; peak GiB a rank {[round(r['peak_gb'], 2) for r in ranks]}; (fwd, dq, dkv, delta, group_sum) "
+                f"launches a rank {[r['launches'] for r in ranks]}; {got['seconds']:.1f} s")
+            if len(got["steps"]) != PARALLEL_TRAIN_STEPS or max(loss_rel) > PARALLEL_LOSS_REL_TOL \
+                    or max(norm_rel) > PARALLEL_GRAD_NORM_REL_TOL or over:
+                failed.append(f"parallel training {name}: losses, grad norms or gradient leaves {over[:5]} off the "
+                              f"one-process run")
+        # The step directory written under FSDP, restored into one process:
+        # every state tensor and each data rank's loss over its own rows
+        # (the same rows, draws and shapes) bit-equal.
+        saved = by_job[3]
+        restored = port_train.main(_train_args(run_dir, "fsdp_saved", str(device), *small, "--resume", "true"))
+        state, model = restored.trainer.state, restored.trainer.model
+        sums = state_checksums(state)
+        differ = sorted(k for k in saved[0]["checksums"] if sums.get(k) != saved[0]["checksums"][k])
+        observation, actions = next(restored.data_iter)
+        rows = actions.shape[0]
+        gen = step_generator(restored.trainer.config.seed, state.step, device)
+        draws = model.loss_randomness(rows, gen)
+        own = []
+        with torch.no_grad():
+            loss, _ = model.compute_loss(observation, actions, train=True, **draws)
+            for r in range(TP_RANKS):
+                part = slice(r, rows, TP_RANKS)
+                own.append(model.compute_loss(_rows_of(observation, part), actions[part].contiguous(), train=True,
+                                              **_take_rows(draws, part))[0].item())
+        next_loss = loss.item()
+        restored.close()
+        own_sharded = [r["own_rows_loss"] for r in saved]
+        next_rel = abs(next_loss - saved[0]["next_loss"]) / abs(saved[0]["next_loss"])
+        numbers["restore"] = dict(tensors=len(sums) - 2, differ=len(differ), write_bytes=saved[0]["write_bytes"],
+                                  own_rows_loss_sharded=own_sharded, own_rows_loss_one_process=own,
+                                  next_loss_sharded=saved[0]["next_loss"], next_loss_one_process=next_loss,
+                                  next_loss_rel=next_rel)
+        log(f"parallel 17c: the FSDP step directory ({saved[0]['write_bytes']} bytes written, {TRAIN_PHASE_DTYPE}, "
+            f"--freeze_vlm {TRAIN_PHASE_FREEZE_VLM}) restored into one process: {len(sums) - 2 - len(differ)} of "
+            f"{len(sums) - 2} state tensors bit-equal to the sharded run's whole tensors; the next batch's loss over "
+            f"each data rank's rows {own!r} vs the ranks' own {own_sharded!r} (bit-equal: "
+            f"{own == own_sharded}); over the whole batch {next_loss!r} vs the sum of the ranks' shares "
+            f"{saved[0]['next_loss']!r} (rel {next_rel:.2e}: 8-row against 4-row bf16 matmuls; tol "
+            f"{PARALLEL_LOSS_REL_TOL}); the two-rank world took {world_s:.1f} s")
+        if differ or own != own_sharded or next_rel > PARALLEL_LOSS_REL_TOL:
+            failed.append(f"parallel restore: {len(differ)} tensors differ (first {differ[:3]}), the losses over each "
+                          f"rank's rows {own} vs {own_sharded}, next loss rel {next_rel}")
+        if failed:
+            raise AssertionError("; ".join(failed))
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    numbers["seconds"] = time.monotonic() - t_phase
+    return numbers
+
+
+def plan_large_models() -> dict:
+    """Phase 17d: ``fsdp_sharding(..., log=True)`` of lap_gemma3_12b and
+    lap_gemma3_27b on the meta device at (fsdp 4) and (fsdp 2, tp 2): bytes a
+    rank holds. No memory is allocated."""
+    import logging
+
+    from lap_tpu_torch.parallel.sharding import fsdp_sharding
+    from lap_tpu_torch.training.config import get_config
+
+    logging.getLogger("lap_tpu_torch.parallel.sharding").setLevel(logging.WARNING)  # the per-leaf lines
+    out = {}
+    for name in PLANNED_CONFIGS:
+        model = get_config(name).model.create_module(device="meta", init_seed=None,
+                                                     param_dtype=getattr(__import__("torch"), "float32"))
+        total = sum(p.numel() * p.element_size() for p in model.parameters())
+        for mesh in PLANNED_MESHES:
+            plan = fsdp_sharding(model, mesh, log=True)
+            key = f"{name} {mesh}"
+            out[key] = dict(total_gb=total / 1e9, per_rank_gb=plan.per_rank_bytes / 1e9,
+                            sharded_gb=plan.sharded_bytes / 1e9, replicated_gb=plan.replicated_bytes / 1e9,
+                            sharded=plan.num_sharded, replicated=plan.num_replicated)
+            log(f"parallel 17d: {key}: f32 parameters {total / 1e9:.2f} GB; JAX's placement shards "
+                f"{plan.num_sharded} leaves ({plan.sharded_bytes / 1e9:.2f} GB) and replicates {plan.num_replicated} "
+                f"({plan.replicated_bytes / 1e9:.3f} GB): {plan.per_rank_bytes / 1e9:.2f} GB of parameters a rank")
+        del model
+    return out
+
+
 def main() -> int:
 
     if not (REPO / "lap_tpu_torch" / "csrc").is_dir():
@@ -4018,6 +4869,21 @@ def main() -> int:
     variant_fwd_timing = time_variant_flash_forward(device)
     release()
     rlds = run_rlds_training(device)
+    release()
+    t17 = time.monotonic()
+    tp_serving = stack["parallel"]
+    par_train = run_parallel_training(device)
+    tp_g3 = par_train.pop("tp_gemma3")
+    plans = plan_large_models()
+    par_bwd = dict(fwd=0, dq=0, dkv=0, delta=0, group_sum=0)
+    for name in ("nccl_1_rank", "fsdp2", "tp2_sp"):
+        for counts in par_train[name]["launches_per_rank"]:
+            for key, n in zip(par_bwd, counts, strict=True):
+                par_bwd[key] += n
+    par_bwd["fwd"] += tp_serving["flash_launches"] + sum(c[0] for c in tp_g3["launches_per_rank"])
+    print(json.dumps({"parallel": {"serving": tp_serving, "gemma3": tp_g3, "training": par_train, "plans": plans,
+                                   "launches": par_bwd, "seconds_17bcd": time.monotonic() - t17}}), flush=True)
+    log(f"parallel: phase 17b-d took {time.monotonic() - t17:.1f} s, 17a {tp_serving['seconds']:.1f} s")
 
     csrc = "lap_tpu_torch/csrc/"
     kernels = [
@@ -4026,7 +4892,7 @@ def main() -> int:
             replaces="lap_tpu/ops/flash_attention.py:53",
             launches=flow_launches + sum(c[0] for c in quant_flow.values()) + sum(c[0] for c in ar.values())
             + stack["flash"] + train_launches["fwd"] + entry["fwd"] + g3_flash + g3_train["launches"]["fwd"]
-            + variants["fwd"] + rlds["fwd"],
+            + variants["fwd"] + rlds["fwd"] + par_bwd["fwd"], launches_parallel=par_bwd["fwd"],
             launches_gemma3_serving=g3_flash, launches_gemma3_training=g3_train["launches"]["fwd"],
             launches_variants=variants["fwd"], launches_rlds_training=rlds["fwd"], variant_prefills=variant_fwd_timing,
             launches_flow=flow_launches, launches_quant_flow=sum(c[0] for c in quant_flow.values()),
@@ -4043,7 +4909,7 @@ def main() -> int:
             name="flash_attention_bwd_dq", route="cuda", source=csrc + fa.BWD_SOURCE,
             replaces="lap_tpu/ops/flash_attention.py:173",
             launches=train_launches["dq"] + entry["dq"] + g3_train["launches"]["dq"] + variants["dq"]
-            + rlds["dq"],
+            + rlds["dq"] + par_bwd["dq"], launches_parallel=par_bwd["dq"],
             launches_variants=variants["dq"], launches_rlds_training=rlds["dq"],
             launches_training=train_launches["dq"], launches_train_entry_points=entry["dq"],
             launches_gemma3_training=g3_train["launches"]["dq"],
@@ -4054,7 +4920,7 @@ def main() -> int:
             name="flash_attention_bwd_dkv", route="cuda", source=csrc + fa.BWD_SOURCE,
             replaces="lap_tpu/ops/flash_attention.py:215",
             launches=train_launches["dkv"] + entry["dkv"] + g3_train["launches"]["dkv"] + variants["dkv"]
-            + rlds["dkv"],
+            + rlds["dkv"] + par_bwd["dkv"], launches_parallel=par_bwd["dkv"],
             launches_variants=variants["dkv"], launches_rlds_training=rlds["dkv"],
             launches_training=train_launches["dkv"], launches_train_entry_points=entry["dkv"],
             launches_gemma3_training=g3_train["launches"]["dkv"],
@@ -4065,7 +4931,7 @@ def main() -> int:
             name="flash_attention_bwd_delta", route="cuda", source=csrc + fa.BWD_SOURCE,
             replaces="lap_tpu/ops/flash_attention.py:270",
             launches=train_launches["delta"] + entry["delta"] + g3_train["launches"]["delta"] + variants["delta"]
-            + rlds["delta"],
+            + rlds["delta"] + par_bwd["delta"], launches_parallel=par_bwd["delta"],
             launches_variants=variants["delta"], launches_rlds_training=rlds["delta"],
             launches_training=train_launches["delta"], launches_train_entry_points=entry["delta"],
             launches_gemma3_training=g3_train["launches"]["delta"],
@@ -4076,7 +4942,7 @@ def main() -> int:
             name="flash_attention_bwd_group_sum", route="cuda", source=csrc + fa.BWD_SOURCE,
             replaces="lap_tpu/ops/flash_attention.py:340",
             launches=train_launches["group_sum"] + entry["group_sum"] + g3_train["launches"]["group_sum"]
-            + variants["group_sum"] + rlds["group_sum"],
+            + variants["group_sum"] + rlds["group_sum"] + par_bwd["group_sum"], launches_parallel=par_bwd["group_sum"],
             launches_variants=variants["group_sum"], launches_rlds_training=rlds["group_sum"],
             launches_training=train_launches["group_sum"], launches_train_entry_points=entry["group_sum"],
             launches_gemma3_training=g3_train["launches"]["group_sum"],

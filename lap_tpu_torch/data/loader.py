@@ -12,8 +12,14 @@ card (port of ``lap_tpu/data/loader.py``).
   ``Normalize`` on the pipeline's norm stats between the data and the model
   transforms; ``set_norm_stats`` hands those to the checkpoint's assets.
 
-Placement: one process, rank 0 (``device.process_placement()`` is (0, 1)
-until ROADMAP item 13). A batch becomes tensors in pinned host memory (when the
+Placement: each data rank (``device.process_placement()``: its index over
+the mesh's dp x fsdp ranks) loads its share of the global batch. An indexable
+dataset gives rank ``r`` of ``n`` the strided slice ``r::n`` of each epoch's
+permutation, truncated first to a multiple of ``n`` (``:121-130``); the RLDS
+readers shard their episodes instead. A sample's transform is seeded from its
+position in the global stream (``n * p + r`` for the ``p``-th sample of rank
+``r``), so the data ranks' batches of a step are together the batch one
+process would take, sample for sample. A batch becomes tensors in pinned host memory (when the
 loader's device is a card) copied with ``non_blocking=True``; images stay
 uint8 across the copy, as in JAX (``:244-246``), and the model converts them.
 
@@ -154,8 +160,9 @@ class TransformedDataLoader:
     def _transform_at(self, position: int, sample: dict) -> dict:
         for t in self.unseeded_transforms:
             sample = t(sample)
+        index, count = process_placement()
         with _GLOBAL_RNG_LOCK:
-            seed_global_rngs(sample_seed(self.seed, position))
+            seed_global_rngs(sample_seed(self.seed, position * count + index))
             return self._transform(sample)
 
     def _sample_indices(self, epoch: int) -> np.ndarray:
@@ -166,8 +173,13 @@ class TransformedDataLoader:
         if self.shuffle:
             rng = np.random.default_rng(self.seed * 7919 + epoch)
             rng.shuffle(idx)
-        # One process: the JAX loader's per-process strided slice is the whole
-        # permutation here (ROADMAP item 13 brings more processes).
+        # The permutation is seed-identical on every data rank; truncate to a
+        # multiple of the rank count first, so every rank agrees on the epoch
+        # length (and on batches_per_epoch at a resume).
+        index, count = process_placement()
+        if count > 1:
+            idx = idx[: (len(idx) // count) * count]
+            idx = idx[index::count]
         return idx
 
     def __iter__(self) -> Iterator:
@@ -355,8 +367,7 @@ def create_data_loader(train_config, *, device=None, split: str = "train") -> Tr
     transforms.extend(data_cfg.model_transforms(model_cfg, include_outputs=False).inputs)
     transforms.append(_keep_batch_fields)
 
-    # Each process loads its slice of the global batch (one process until
-    # ROADMAP item 13).
+    # Each data rank loads its share of the global batch.
     _, n_proc = process_placement()
     if train_config.batch_size % n_proc != 0:
         raise ValueError(f"batch_size {train_config.batch_size} not divisible by process_count {n_proc}")

@@ -7,8 +7,9 @@ with the mixture weights (optionally balanced by dataset size).
 
 Copied from ``lap_tpu/data/mixer.py``; its imports point at the port's
 copies. ``jax.process_index()``/``process_count()`` become
-``device.process_placement()``, one process until ROADMAP item 13, so the
-cross-host merge of the stats pass (``mixer.py:240-254``) is left out.
+``device.process_placement()`` (this rank's index and count over the data
+ranks), and the stats pass's cross-host merge (``mixer.py:240-254``) pools
+the data ranks' moments through ``array_utils.gather_host_json``.
 """
 
 from __future__ import annotations
@@ -242,6 +243,20 @@ def compute_mixture_norm_stats(train_config, members, *, max_episodes_per_datase
             if max_eps is not None and count >= max_eps:
                 break
         local = {k: t.finalize() for k, t in trackers.items()}
+        # Cross-rank merge: every data rank read a disjoint episode shard;
+        # pool the moments exactly, envelope the quantiles.
+        if process_count > 1:
+            from lap_tpu_torch.policies.model_transforms import NormStats
+            from lap_tpu_torch.training.array_utils import gather_host_json
+
+            gathered = gather_host_json({k: v.to_dict() for k, v in local.items()})
+            local = {
+                k: _norm_stats.merge_norm_stats(
+                    [NormStats.from_dict(g[k]) for g in gathered if k in g],
+                    dim=len(local[k].mean) if k in local else train_config.model.action_dim,
+                )
+                for k in {key for g in gathered for key in g}
+            }
         per_dataset[name] = {
             "stats": local,
             "state_type": "joint_pos" if ds_cfg.state_encoding == "joint" else (

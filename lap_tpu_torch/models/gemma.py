@@ -30,6 +30,15 @@ expert's attention einsums and MLP (``lora.py``); the ``*_lora`` variants
 adapt both, with rank = alpha (16 for gemma_2b, 32 for gemma_300m, 4 for
 dummy).
 
+Tensor and sequence parallelism (``parallel/``): a model sharded by
+``parallel.sharding.parallelize_`` keeps 1/tp of the heads and MLP hidden
+dims on each rank and records its tp group (``Module.tp_group``); each
+attention and MLP is then one Megatron region (``parallel/tp.py``) at the
+points where JAX constrains activations (``lap_tpu/models/gemma.py:346,
+360, 372, 390``). Under sequence parallelism (training) an expert's stream
+whose length tp divides stays token-sharded between regions, and its norms
+sum their gradients over tp. Without a tp group every hook is the identity.
+
 Parameters keep the JAX checkpoint shapes; per-expert modules sit in
 ``nn.ModuleList``s indexed by expert, layers in ``layers``.
 """
@@ -47,6 +56,16 @@ from torch.utils.checkpoint import checkpoint
 from lap_tpu_torch.models.lora import QUANT_MAX_ROWS, Einsum, FeedForward, LoRAConfig, QuantWeights, quant_matmul
 from lap_tpu_torch.ops.attention import attention
 from lap_tpu_torch.ops.rope import apply_rope
+from lap_tpu_torch.parallel import mesh as _mesh
+from lap_tpu_torch.parallel.tp import (
+    TPContext,
+    gather_tokens,
+    grad_sum,
+    make_context,
+    region_in,
+    region_out,
+    split_tokens,
+)
 
 PALIGEMMA_VOCAB_SIZE = 257_152
 REMAT_POLICIES = ("nothing_saveable", "none")
@@ -101,19 +120,22 @@ class RMSNorm(nn.Module):
         else:
             self.scale = nn.Parameter(torch.empty(width, device=device, dtype=dtype))
 
-    def forward(self, x: torch.Tensor, cond: torch.Tensor | None = None):
+    def forward(self, x: torch.Tensor, cond: torch.Tensor | None = None, grad_tp: TPContext | None = None):
+        """``grad_tp``: the tp context when ``x`` holds one rank's tokens
+        (sequence parallelism): the scale's (or modulation's) gradient then
+        sums over tp."""
         dtype = x.dtype
         var = x.float().square().mean(dim=-1, keepdim=True)
         normed = x * torch.rsqrt(var + 1e-6)
         if not self.adaptive:
             if cond is not None:
                 raise ValueError("a plain RMSNorm takes no conditioning")
-            return (normed * (1 + self.scale)).to(dtype), None
+            return (normed * (1 + grad_sum(self.scale, grad_tp))).to(dtype), None
         # The modulation Dense runs in the activation dtype (flax dtype=x.dtype).
         modulation = F.linear(
             cond.to(dtype), self.modulation_weight.to(dtype), self.modulation_bias.to(dtype)
         )
-        scale, shift, gate = modulation[:, None, :].chunk(3, dim=-1)
+        scale, shift, gate = grad_sum(modulation, grad_tp)[:, None, :].chunk(3, dim=-1)
         return (normed * (1 + scale) + shift).to(dtype), gate
 
     def random_init_(self, gen: torch.Generator) -> None:
@@ -312,6 +334,12 @@ class Attention(nn.Module):
         return out
 
 
+def _sp_grad(tp: TPContext | None, i: int) -> TPContext | None:
+    """The context under which expert ``i``'s norms sum their gradients: its
+    stream is token-sharded (sequence parallelism)."""
+    return tp if tp is not None and tp.is_sharded(i) else None
+
+
 def _gated_residual(x, y, gate):
     if x is None:
         return None
@@ -333,23 +361,27 @@ class Block(nn.Module):
             lambda i: FeedForward(configs[i].width, configs[i].mlp_dim, lora_config=configs[i].lora_configs.get("ffn"),
                                   **kw), n)
 
-    def forward(self, xs, kv_cache, positions, attn_mask, adarms_cond, want_cache: bool = True):
+    def forward(self, xs, kv_cache, positions, attn_mask, adarms_cond, want_cache: bool = True, *,
+                tp: TPContext | None = None):
+        """``tp``: the tensor-parallel context (``parallel/tp.py``); each
+        attention and MLP is one region."""
         pre, gates = [], []
         for i, x in enumerate(xs):
             gate = None
             if x is not None:
-                x, gate = self.pre_attention_norm[i](x, adarms_cond[i])
-            pre.append(x)
+                x, gate = self.pre_attention_norm[i](x, adarms_cond[i], _sp_grad(tp, i))
+            pre.append(region_in(x, tp, i))
             gates.append(gate)
         post, kv_cache = self.attn(pre, positions, attn_mask, kv_cache, want_cache)
+        post = [region_out(y, tp, i) for i, y in enumerate(post)]
         xs = [_gated_residual(x, y, g) for x, y, g in zip(xs, post, gates, strict=True)]
 
         outs, gates = [], []
         for i, x in enumerate(xs):
             gate = None
             if x is not None:
-                x, gate = self.pre_ffw_norm[i](x, adarms_cond[i])
-                x = self.mlp[i](x)
+                x, gate = self.pre_ffw_norm[i](x, adarms_cond[i], _sp_grad(tp, i))
+                x = region_out(self.mlp[i](region_in(x, tp, i)), tp, i)
             outs.append(x)
             gates.append(gate)
         xs = [_gated_residual(x, y, g) for x, y, g in zip(xs, outs, gates, strict=True)]
@@ -360,6 +392,8 @@ class Module(nn.Module):
     """The multi-expert transformer: ``depth`` blocks, then per-expert final norms."""
 
     BLOCK = Block
+    # The tp group of a tensor-parallel model (``parallel.sharding``).
+    tp_group = None
 
     def __init__(self, configs: Sequence[Config], *, use_adarms: Sequence[bool] | None = None,
                  embed_dtype: torch.dtype = torch.bfloat16, cache_dtype=None, attn_impl: str = "auto",
@@ -404,6 +438,20 @@ class Module(nn.Module):
     def decode_logits(self, prelogits: torch.Tensor) -> torch.Tensor:
         return self.embedder.decode(prelogits)
 
+    def _tp_context(self, embedded, want_cache: bool) -> TPContext | None:
+        """The tensor-parallel context of one call (None without tp): under
+        sequence parallelism (training only) an expert's [B, T, D] stream is
+        token-sharded when tp divides T (JAX's rule, ``mesh.sequence_sharded``).
+        Read in the calling thread, then passed down explicitly."""
+        if self.tp_group is None:
+            return None
+        sp = not want_cache and _mesh.sequence_parallel_enabled()
+        tp = make_context(self.tp_group)
+        if not sp:
+            return tp
+        sharded = [e is not None and _mesh.sequence_sharded(e.shape[1], tp.size) for e in embedded]
+        return make_context(self.tp_group, sharded)
+
     def _block_kwargs(self, layer: int, **kwargs) -> dict:
         """Keyword arguments of layer ``layer``'s block beyond the shared ones."""
         if kwargs:
@@ -432,12 +480,16 @@ class Module(nn.Module):
         embedded = [None if e is None else e.to(self.embed_dtype) for e in embedded]
         if adarms_cond is None:
             adarms_cond = [None] * len(self.configs)
+        tp = self._tp_context(embedded, want_cache)
+        embedded = [split_tokens(e, tp, i) for i, e in enumerate(embedded)]
         remat = self.remat_policy != "none" and torch.is_grad_enabled()
         caches = []
         for i, block in enumerate(self.layers):
             layer_in = None if kv_cache is None else tuple(c[i] for c in kv_cache)
             args = (embedded, layer_in, positions, mask, adarms_cond, want_cache)
             kwargs = self._block_kwargs(i, **block_kwargs)
+            if tp is not None:
+                kwargs["tp"] = tp
             if remat:
                 # No dropout, so there is no RNG state to replay.
                 embedded, layer_out = checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False,
@@ -445,6 +497,7 @@ class Module(nn.Module):
             else:
                 embedded, layer_out = block(*args, **kwargs)
             caches.append(layer_out)
+        embedded = [gather_tokens(e, tp, i) for i, e in enumerate(embedded)]
         if not want_cache:
             kv_cache = None
         elif in_place:

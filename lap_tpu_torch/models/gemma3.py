@@ -32,8 +32,10 @@ from the JAX module:
 
 The layers are per layer (JAX's ``scan_layers=False``) with the KV cache,
 the in-place single-token update, remat and quantized copies as in
-``gemma.py``. The GPipe branch of the JAX module is not ported here
-(parallelism, ROADMAP queue A item 13).
+``gemma.py``. Tensor and sequence parallelism enter each block as in
+``gemma.py`` (``parallel/tp.py``); the q/k norms sum their gradients over tp.
+The GPipe branch of the JAX module is not ported here (ROADMAP queue A item
+13b).
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lap_tpu_torch.models import gemma as _gemma
-from lap_tpu_torch.models.gemma import RMSNorm, _expert_list, _gated_residual
+from lap_tpu_torch.models.gemma import RMSNorm, _expert_list, _gated_residual, _sp_grad
 from lap_tpu_torch.models.lora import (
     QUANT_MAX_ROWS,
     LoRAConfig,
@@ -56,6 +58,7 @@ from lap_tpu_torch.models.lora import (
     mlp_lora_init_,
     quant_matmul,
 )
+from lap_tpu_torch.parallel.tp import TPContext, grad_sum, region_in, region_out
 
 GEMMA3_VOCAB_SIZE = 262_144
 
@@ -119,10 +122,15 @@ class QKRMSNorm(nn.Module):
         super().__init__()
         self.scale = nn.Parameter(torch.empty(head_dim, device=device, dtype=dtype))
 
+    # Under tp: the context over which the scale's gradient sums (each rank
+    # normalises its own heads).
+    tp_grad: TPContext | None = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         var = x32.square().mean(dim=-1, keepdim=True)
-        return (x32 * torch.rsqrt(var + 1e-6) * self.scale.float()).to(x.dtype)
+        scale = grad_sum(self.scale, self.tp_grad)
+        return (x32 * torch.rsqrt(var + 1e-6) * scale.float()).to(x.dtype)
 
     def random_init_(self, gen: torch.Generator) -> None:
         self.scale.normal_(1.0, 0.1, generator=gen)
@@ -264,34 +272,37 @@ class Block(nn.Module):
         self.post_ffw_norm = RMSNorm(cfg0.width, **kw) if cfg0.use_post_ffw_norm else None
 
     @staticmethod
-    def _post_norm(norm, outs):
+    def _post_norm(norm, outs, tp):
         if norm is None or outs[0] is None:
             return outs
-        return [norm(outs[0])[0], *outs[1:]]
+        return [norm(outs[0], None, _sp_grad(tp, 0))[0], *outs[1:]]
 
     def forward(self, xs, kv_cache, positions, attn_mask, adarms_cond, want_cache: bool = True, *,
-                is_global: bool, image_mask=None):
+                is_global: bool, image_mask=None, tp: TPContext | None = None):
+        """``tp``: the tensor-parallel context, as ``gemma.Block``'s; the
+        post norms follow the row-parallel sums."""
         pre, gates = [], []
         for i, x in enumerate(xs):
             gate = None
             if x is not None:
-                x, gate = self.pre_attention_norm[i](x, adarms_cond[i])
-            pre.append(x)
+                x, gate = self.pre_attention_norm[i](x, adarms_cond[i], _sp_grad(tp, i))
+            pre.append(region_in(x, tp, i))
             gates.append(gate)
         post, kv_cache = self.attn(pre, positions, attn_mask, kv_cache, want_cache, is_global=is_global,
                                    image_mask=image_mask)
-        post = self._post_norm(self.post_attention_norm, post)
+        post = [region_out(y, tp, i) for i, y in enumerate(post)]
+        post = self._post_norm(self.post_attention_norm, post, tp)
         xs = [_gated_residual(x, y, g) for x, y, g in zip(xs, post, gates, strict=True)]
 
         outs, gates = [], []
         for i, x in enumerate(xs):
             gate = None
             if x is not None:
-                x, gate = self.pre_ffw_norm[i](x, adarms_cond[i])
-                x = self.mlp[i](x)
+                x, gate = self.pre_ffw_norm[i](x, adarms_cond[i], _sp_grad(tp, i))
+                x = region_out(self.mlp[i](region_in(x, tp, i)), tp, i)
             outs.append(x)
             gates.append(gate)
-        outs = self._post_norm(self.post_ffw_norm, outs)
+        outs = self._post_norm(self.post_ffw_norm, outs, tp)
         xs = [_gated_residual(x, y, g) for x, y, g in zip(xs, outs, gates, strict=True)]
         return xs, kv_cache
 

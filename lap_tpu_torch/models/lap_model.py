@@ -37,6 +37,16 @@ augmentation, AR sampling), the values are arguments, drawn from a
 the generator's own bits. Rows that emitted EOS write 0; with
 ``stop_on_eos`` the loop ends once every row has, which the host reads once
 per token (one device sync per decode step).
+
+Data parallelism (one process a data rank, ``parallel/``): under a mesh
+whose data axes hold more than one rank, ``compute_loss`` returns this
+rank's share of the global batch's loss (its sums over the global counts,
+``mesh.batch_mean``/``batch_count``), so the shares and their gradients sum
+to one process's; its metrics stay the rank's own. ``loss_randomness``
+draws what ``compute_loss`` would draw, in its order, for any batch size:
+a sharded step draws for the global batch and takes its rows. JAX's
+activation constraints at ``lap_model.py:263-274,315`` pin the batch dim,
+which here each rank holds whole: nothing to do there.
 """
 
 from __future__ import annotations
@@ -56,9 +66,10 @@ from lap_tpu_torch.models import gemma as _gemma
 from lap_tpu_torch.models import metrics as _metrics
 from lap_tpu_torch.models import siglip as _siglip
 from lap_tpu_torch.models.init import random_init_
-from lap_tpu_torch.models.preprocessing import preprocess_observation
+from lap_tpu_torch.models.preprocessing import AugmentParams, preprocess_observation
 from lap_tpu_torch.models.types import IMAGE_KEYS, IMAGE_RESOLUTION, CoTObservation, fake_obs
 from lap_tpu_torch.ops.masks import make_attn_mask
+from lap_tpu_torch.parallel.mesh import batch_count, batch_mean
 
 # Ids of the VQA datasets in the order the JAX package's data registry
 # registers them (0 is reserved for "not a VQA sample").
@@ -400,6 +411,26 @@ class LAP(nn.Module):
     # Training
     # ------------------------------------------------------------------
 
+    def loss_randomness(self, batch_size: int, generator: torch.Generator, *, train: bool = True) -> dict:
+        """What ``compute_loss`` draws from ``generator`` for a batch of
+        ``batch_size``, in its order: each augmented camera's
+        ``AugmentParams``, then the flow noise and time. A data-parallel step
+        draws them for the global batch and gives each rank its rows."""
+        cfg, device = self.config, self.device
+        out = {}
+        if train and cfg.enable_image_augmentation:
+            out["aug_params"] = {
+                key: AugmentParams.draw(batch_size, *cfg.image_resolution, generator=generator, device=device)
+                for key in cfg.image_keys
+                if cfg.aug_wrist_image or "wrist" not in key
+            }
+        if cfg.enable_action_training:
+            shape = (batch_size, cfg.action_horizon, cfg.action_dim)
+            out["noise"] = torch.randn(shape, generator=generator, device=device)
+            u = torch.rand((batch_size,), generator=generator, device=device)
+            out["time"] = u ** (1.0 / 1.5) * 0.999 + 0.001
+        return out
+
     def prepare_suffix(self, obs: CoTObservation, actions, *, noise=None, time=None,
                        generator: torch.Generator | None = None):
         """Flow-matching corruption: ``x_t = t*noise + (1-t)*a``, target
@@ -654,9 +685,9 @@ class LAP(nn.Module):
             # JAX's loss without an action expert: the language term alone.
             total_per_sample = lang_per_sample
             if cfg.enable_langact_training and sample_mask is not None:
-                final_loss = lang_per_sample.sum() / sample_mask.sum().to(torch.float32).clamp(min=1.0)
+                final_loss = lang_per_sample.sum() / batch_count(sample_mask.sum().to(torch.float32)).clamp(min=1.0)
             else:
-                final_loss = lang_per_sample.mean()
+                final_loss = batch_mean(lang_per_sample)
         else:
             action_loss, action_metrics = self._compute_action_loss(pre_logits[1], suffix["u_t"])
             action_sample_mask = torch.ones(batch_size, dtype=torch.bool, device=device)
@@ -671,13 +702,16 @@ class LAP(nn.Module):
             metrics.update(action_metrics)
             total_per_sample = lang_per_sample + action_per_sample
 
-            action_term = action_per_sample.sum() / action_count
+            # Under data parallelism each rank's terms are its share of the
+            # global batch's (``parallel.mesh.batch_count``); the metrics above
+            # stay the rank's own.
+            action_term = action_per_sample.sum() / batch_count(action_sample_mask_f.sum()).clamp(min=1.0)
             if not cfg.enable_langact_training:
                 lang_term = 0.0
             elif sample_mask is not None:
-                lang_term = lang_per_sample.sum() / sample_mask.sum().to(torch.float32).clamp(min=1.0)
+                lang_term = lang_per_sample.sum() / batch_count(sample_mask.sum().to(torch.float32)).clamp(min=1.0)
             else:
-                lang_term = lang_per_sample.mean()
+                lang_term = batch_mean(lang_per_sample)
             final_loss = lang_term + action_term
 
         if verbose:

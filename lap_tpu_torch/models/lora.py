@@ -37,6 +37,7 @@ from torch import nn
 
 from lap_tpu_torch.ops import int4_matmul as _int4
 from lap_tpu_torch.ops import int8_matmul as _int8
+from lap_tpu_torch.parallel.tp import TPContext, grad_sum
 
 # Rows up to which a call takes the dequant matmul (decode: 1 AR token per
 # request, or 16 flow-suffix rows); prefill calls of hundreds of rows keep
@@ -207,7 +208,12 @@ class Einsum(QuantWeights):
     term with ``lora_config``.
 
     ``fan_in`` is the size of the contracted weight axes (for random init).
+    ``tp_grad``: under tensor parallelism, the tp context of a weight that
+    stays whole on every rank but serves one rank's heads (the MQA
+    ``kv_einsum``): its gradient sums over the group.
     """
+
+    tp_grad: TPContext | None = None
 
     def __init__(self, shape: tuple[int, ...], eqn: str, fan_in: int, *, lora_config: LoRAConfig | None = None,
                  device=None, dtype=None):
@@ -233,7 +239,7 @@ class Einsum(QuantWeights):
         if q is not None and _rows(x, len(x_batch)) <= QUANT_MAX_ROWS:
             out_dims = tuple(x.shape[: len(x_batch)]) + tuple(self.w.shape[p] for p in w_perm[len(contract):])
             return quant_matmul(x, *q, out_dims).permute(*out_perm)
-        out = torch.einsum(self.eqn, x, self.w.to(x.dtype))
+        out = torch.einsum(self.eqn, x, grad_sum(self.w, self.tp_grad).to(x.dtype))
         cfg = self.lora_config
         if cfg is not None:
             out = out + _lora_einsum(self.eqn, x, self.lora_a.to(x.dtype), self.lora_b.to(x.dtype),

@@ -7,6 +7,16 @@ Each request draws its flow noise or sampling noise from a
 ``torch.Generator`` on the model's device, seeded from ``(seed, request
 step)``, so concurrent requests never reuse noise and a run is reproducible
 from its seed.
+
+Tensor-parallel serving (a model sharded by ``parallel.sharding.parallelize_``
+over a tp group): only the group's first rank takes requests. Each model
+call there, batched by ``BatchingPolicy`` or trimmed by the token bucket as
+it may be, first broadcasts the prepared batch and its request step to the
+group; the other ranks loop in ``serve_followers`` on those broadcasts, run
+the same model call on their shards, and return at ``stop_followers``. The
+calls of one policy are serialised, so every rank sees them in one order.
+Policies built over the same ranks share their process group: serve one at
+a time, and stop it before the next.
 """
 
 from __future__ import annotations
@@ -18,8 +28,10 @@ from collections.abc import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lap_tpu_torch.models.types import CoTObservation
+from lap_tpu_torch.parallel import mesh as mesh_lib
 from lap_tpu_torch.policies.model_transforms import compose
 
 # Fields whose trailing axis is the (end-padded) token axis: the only ones
@@ -126,6 +138,9 @@ class _ModelPolicy(BasePolicy):
         self._output = compose(output_transforms)
         self._token_bucket = token_bucket
         self._seed = seed
+        par = getattr(model, "parallel", None)
+        self._tp_group = None if par is None else mesh_lib.tp_group(par.mesh)
+        self._tp_lock = threading.Lock()
 
     def infer(self, obs: dict) -> dict:
         t_start = time.monotonic()
@@ -148,10 +163,13 @@ class _ModelPolicy(BasePolicy):
         batch = _stack_batch(inputs_list)
         if self._token_bucket:
             batch = _trim_token_pad(batch, self._token_bucket)
-        device = self._model.device
-        observation = CoTObservation.from_dict(batch, device=device)
-        generator = torch.Generator(device=device).manual_seed(request_seed(self._seed, self._next_step()))
-        sampled = self._sample(observation, generator).cpu().numpy()
+        if self._tp_group is None:
+            sampled = self._run(batch, self._next_step())
+        else:
+            with self._tp_lock:
+                step = self._next_step()
+                _broadcast(self._tp_group, {"policy": type(self).__name__, "batch": batch, "step": step})
+                sampled = self._run(batch, step)
         state = np.asarray(batch["state"])
         results = []
         for i, inputs in enumerate(inputs_list):
@@ -160,6 +178,55 @@ class _ModelPolicy(BasePolicy):
                 outputs["raw_state"] = np.asarray(inputs["raw_state"])
             results.append(self._output(outputs))
         return results
+
+
+    def _run(self, batch: dict, step: int) -> np.ndarray:
+        """The model call of request ``step`` on a prepared batch."""
+        device = self._model.device
+        observation = CoTObservation.from_dict(batch, device=device)
+        generator = torch.Generator(device=device).manual_seed(request_seed(self._seed, step))
+        return self._sample(observation, generator).cpu().numpy()
+
+
+def _broadcast(group, message):
+    """``message`` from the group's first rank to the others (returned there)."""
+    box = [message]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0), group=group)
+    return box[0]
+
+
+def model_policy(policy) -> "_ModelPolicy":
+    """The model policy under ``BatchingPolicy``/``PolicyRecorder`` wrappers."""
+    while not isinstance(policy, _ModelPolicy):
+        policy = policy._policy
+    return policy
+
+
+def serve_followers(policy) -> int:
+    """On a tp group's other ranks: run the model call of every request the
+    first rank broadcasts, until ``stop_followers``; returns the number of
+    calls run."""
+    policy = model_policy(policy)
+    if policy._tp_group is None or dist.get_rank(policy._tp_group) == 0:
+        raise ValueError("serve_followers runs on the tp group's other ranks, of a tensor-parallel policy")
+    calls = 0
+    while True:
+        message = _broadcast(policy._tp_group, None)
+        if message is None:
+            return calls
+        if message["policy"] != type(policy).__name__:
+            raise RuntimeError(f"a {message['policy']} request reached a {type(policy).__name__} follower: "
+                               f"the first rank serves another policy over this tp group")
+        policy._run(message["batch"], message["step"])
+        calls += 1
+
+
+def stop_followers(policy) -> None:
+    """On a tp group's first rank: release the ranks in ``serve_followers``."""
+    policy = model_policy(policy)
+    if policy._tp_group is not None:
+        with policy._tp_lock:
+            _broadcast(policy._tp_group, None)
 
 
 class Policy(_ModelPolicy):

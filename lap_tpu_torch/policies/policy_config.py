@@ -17,9 +17,18 @@ The restore builds the model empty on its device (``init_seed=None``) in the
 config's dtype (bf16 for a bf16 model), with the training-only
 ``stop_action_to_vlm_grad`` off, and fills it from the params file (cast
 to the model's dtype); ``quantize`` then adds int8/int4 copies of the
-decode weights through ``LAP.quantize_``. Tensor-parallel serving
-(``tp > 1``) waits for ROADMAP item 13, and ``gs://`` checkpoint
-directories for item 21.
+decode weights through ``LAP.quantize_``.
+
+Tensor-parallel serving (``tp > 1``, ``:85-146``) runs inside a process
+group of ``tp`` ranks (``serve_policy --serve_tp N`` starts them, or
+``torchrun`` does), one a card: the model is built on the ``meta`` device,
+its attention heads and MLP hidden dims are split over a tp mesh
+(``parallel.sharding``), each rank reads only its slices of the params file
+(``checkpoints.restore_params_sharded``), cast to the model's dtype, so the
+whole model is never staged on one rank's device. Rank 0 takes the
+requests and the other ranks run ``policy.serve_followers``. ``tp > 1`` with
+``quantize`` raises, as in JAX: the dequant kernels take whole weights.
+``gs://`` checkpoint directories wait for item 21.
 """
 
 from __future__ import annotations
@@ -103,14 +112,39 @@ def _restore(train_config, checkpoint_dir: Path, *, quantize: str | None = None,
             "quantized serving (int8/int4) is single-card (the dequant "
             "kernels take whole weights); use tp=1 or quantize=None"
         )
-    if tp > 1:
-        raise NotImplementedError("tensor-parallel serving (tp > 1) is not ported yet (ROADMAP queue A, item 13)")
     # Inference disables the training-only stop-gradient.
     model_cfg = dataclasses.replace(train_config.model, stop_action_to_vlm_grad=False)
+    if tp > 1:
+        return _restore_tp(model_cfg, checkpoint_dir, tp, device)
     model = model_cfg.create_module(device=device, init_seed=None)
     restore_params(checkpoint_dir / "params", model)
     if quantize is not None:
         model.quantize_(quantize)
+    return model
+
+
+def _restore_tp(model_cfg, checkpoint_dir: Path, tp: int, device):
+    """The model sharded over a tp mesh of the process group's ``tp`` ranks,
+    each filled with its slices of the params file."""
+    import torch.distributed as dist
+
+    from lap_tpu_torch.device import resolve_device
+    from lap_tpu_torch.parallel import mesh as mesh_lib
+    from lap_tpu_torch.parallel.sharding import parallelize_
+    from lap_tpu_torch.training.checkpoints import restore_params_sharded
+
+    if not dist.is_initialized() or dist.get_world_size() != tp:
+        raise RuntimeError(
+            f"tensor-parallel serving (tp={tp}) runs in a process group of {tp} ranks, one a card: "
+            f"start it with serve_policy --serve_tp {tp} (or under torchrun), and call create_trained_policy "
+            f"on every rank"
+        )
+    device = resolve_device(device)
+    mesh = mesh_lib.make_mesh(1, tp, device_type=device.type)
+    model = model_cfg.create_module(device="meta", init_seed=None)
+    parallelize_(model, mesh)
+    model.to_empty(device=device)
+    restore_params_sharded(checkpoint_dir / "params", model, mesh)
     return model
 
 

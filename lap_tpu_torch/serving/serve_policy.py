@@ -8,8 +8,15 @@ with ``--max_batch`` > 1 and in ``PolicyRecorder`` with ``--record_dir``);
 ``main`` adds the websocket server, whose ``websockets`` and ``msgpack``
 imports happen only there. Runs on the card unless ``--device cpu`` is given.
 
+``--serve_tp N`` serves one model split over N cards (tensor parallelism):
+the command starts its N ranks itself (one process a card, ``cuda:{rank}``),
+or, under ``torchrun``, is one of them. Every rank restores its slices of
+the checkpoint; rank 0 runs the server, the others follow its model calls
+(``policy.serve_followers``) until it stops.
+
 Usage:
     python -m lap_tpu_torch.serving.serve_policy --env LAP_LIBERO --checkpoint_dir ckpts/... [--port 8000]
+    python -m lap_tpu_torch.serving.serve_policy --env LAP --checkpoint_dir ckpts/... --serve_tp 2
     python -m lap_tpu_torch.serving.serve_policy --env DEBUG --device cpu   # tiny random model
 """
 
@@ -19,6 +26,7 @@ import argparse
 import dataclasses
 import enum
 import logging
+import sys
 
 
 class EnvMode(enum.Enum):
@@ -130,7 +138,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--serve_tp", type=int, default=1,
-        help="tensor-parallel serving over N cards (not ported yet: > 1 raises). 1 = single card",
+        help="tensor-parallel serving over N cards, one process a card (started here unless under torchrun). "
+        "1 = single card",
     )
     parser.add_argument(
         "--max_batch", type=int, default=1,
@@ -151,15 +160,64 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def main(argv: list[str] | None = None) -> None:
-    logging.basicConfig(level=logging.INFO)
-    args = parse_args(argv)
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _spawned_rank(rank: int, argv: list[str] | None, env: dict) -> None:
+    import os
+
+    os.environ.update(env, RANK=str(rank), LOCAL_RANK=str(rank))
+    main(argv)
+
+
+def serve(args) -> None:
+    """One rank of the server: rank 0 (or a single process) serves on the
+    websocket; with ``--serve_tp`` > 1 the other ranks follow its model
+    calls until it stops."""
+    from lap_tpu_torch.policies.policy import serve_followers, stop_followers
+
+    rank = 0
+    if args.serve_tp > 1:
+        from lap_tpu_torch.parallel.mesh import init_distributed
+
+        rank, world = init_distributed(device=args.device)
+        if world != args.serve_tp:
+            raise SystemExit(f"--serve_tp {args.serve_tp} needs a process group of {args.serve_tp} ranks, got {world}")
     policy = create_policy(args)
+    if rank != 0:
+        logging.info("rank %d: following rank 0's model calls", rank)
+        serve_followers(policy)
+        return
 
     from lap_tpu_torch.serving.websocket_policy_server import WebsocketPolicyServer
 
     logging.info("serving %s on %s:%d", policy.metadata, args.host, args.port)
-    WebsocketPolicyServer(policy, host=args.host, port=args.port).serve_forever()
+    try:
+        WebsocketPolicyServer(policy, host=args.host, port=args.port).serve_forever()
+    finally:
+        stop_followers(policy)
+
+
+def main(argv: list[str] | None = None) -> None:
+    import os
+
+    logging.basicConfig(level=logging.INFO)
+    argv = sys.argv[1:] if argv is None else argv
+    args = parse_args(argv)
+    if args.serve_tp > 1 and "WORLD_SIZE" not in os.environ:
+        # Start the ranks here: one process each, rank r on cuda:r.
+        import torch.multiprocessing as mp
+
+        env = dict(WORLD_SIZE=str(args.serve_tp), LOCAL_WORLD_SIZE=str(args.serve_tp), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(_free_port()))
+        mp.start_processes(_spawned_rank, args=(argv, env), nprocs=args.serve_tp, start_method="spawn")
+        return
+    serve(args)
 
 
 if __name__ == "__main__":

@@ -57,6 +57,16 @@
 - ``initialize_checkpoint_dir`` (``:185-208``): overwrite wipes, resume
   resumes, neither raises ``FileExistsError``; a resume with no step starts
   fresh.
+- A sharded model (``parallel.sharding.parallelize_``, FSDP and/or tp):
+  ``save`` gathers the whole of each tensor, one at a time
+  (``sharding.full_tensor``: a collective every rank joins in the same
+  order), to rank 0's host memory, and rank 0 writes the same files as one
+  process does; the other ranks write nothing. ``restore`` and
+  ``restore_params_sharded`` (``checkpoints.py:238``) read the files with
+  ``mmap=True`` on every rank and copy only the rank's own slice of each
+  tensor (``sharding.local_shard``), so the whole model is never staged on
+  one rank's device. Any layout restores into any other, one process
+  included.
 """
 
 from __future__ import annotations
@@ -143,6 +153,50 @@ def restore_params(params_dir: str | Path, model: nn.Module) -> nn.Module:
     return model
 
 
+@torch.no_grad()
+def restore_params_sharded(params_dir: str | Path, model: nn.Module, mesh=None) -> nn.Module:
+    """``restore_params`` into a sharded model (``model.parallel``): each
+    rank copies its own slice of each tensor of the file, read with
+    ``mmap=True`` (a ``params.npz`` goes through the weight bridge on the
+    host first). ``mesh``, when given, must be the model's."""
+    from lap_tpu_torch.training.weight_loaders import NPZ_FILE
+
+    if mesh is not None and mesh is not model.parallel.mesh:
+        raise ValueError("restore_params_sharded: the mesh is not the one the model was sharded over")
+    params_dir = Path(params_dir)
+    path = params_dir / PARAMS_FILE
+    if path.exists():
+        state = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    elif (params_dir / NPZ_FILE).exists():
+        from lap_tpu_torch.models.convert import from_jax_params, read_params_npz
+
+        state = from_jax_params(read_params_npz(params_dir / NPZ_FILE))
+    else:
+        raise FileNotFoundError(f"{path}: no port params file and no {NPZ_FILE}")
+    copy_shards(model, {n: p for n, p in model.named_parameters()}, state, "params file")
+    return model
+
+
+def copy_shards(model: nn.Module, own: dict[str, torch.Tensor], saved: dict[str, torch.Tensor], what: str) -> None:
+    """``copy_tensors`` for a sharded model: ``own`` maps parameter names to
+    this rank's shards (the parameters, or optimizer and EMA tensors laid
+    out as them); each takes its slice of the whole saved tensor."""
+    from lap_tpu_torch.parallel.sharding import local, local_shard
+
+    placements = model.parallel.plan.placements
+    missing = sorted(set(own) - set(saved))
+    extra = sorted(set(saved) - set(own))
+    if missing or extra:
+        raise ValueError(f"{what} mismatch: unfilled {missing}, unexpected {extra}")
+    for name in own:
+        if tuple(saved[name].shape) != placements[name].shape:
+            raise ValueError(f"{what}: {name}: shape {tuple(saved[name].shape)} != {placements[name].shape}")
+    with torch.no_grad():
+        for name, target in own.items():
+            shard = local(target)
+            shard.copy_(local_shard(model, name, saved[name]).to(dtype=shard.dtype))
+
+
 def copy_tensors(own: dict[str, torch.Tensor], saved: dict[str, torch.Tensor], what: str) -> None:
     """Copy ``saved`` into ``own`` tensor by tensor (cast to each target's
     dtype), after checking that the names and shapes agree."""
@@ -180,6 +234,32 @@ def _train_state_dict(state: TrainState) -> dict:
 def _payload(state: TrainState) -> dict:
     """What a step directory holds: the train state and the EMA view."""
     return {"train_state": _train_state_dict(state), "params": dict(inference_params(state))}
+
+
+def _gathered_payload(state: TrainState) -> dict | None:
+    """``_payload`` of a sharded model as whole tensors in rank 0's host
+    memory (None on the other ranks); every rank calls it."""
+    import torch.distributed as dist
+
+    from lap_tpu_torch.parallel.sharding import full_tensor
+
+    model = state.model
+    keep = dist.get_rank() == 0
+
+    def whole(name: str, part: torch.Tensor):
+        t = full_tensor(model, name, part)
+        return t.to("cpu", copy=True) if keep else None
+
+    params = {n: whole(n, p) for n, p in state.params.items()}
+    opt = {"count": int(state.opt_state.count)}
+    for buf, tensors in state.opt_state.buffers().items():
+        opt[buf] = {n: whole(n, t) for n, t in zip(state.trainable, tensors, strict=True)}
+    ema = {} if state.ema_params is None else {n: whole(n, t) for n, t in state.ema_params.items()}
+    if not keep:
+        return None
+    train_state = {"step": int(state.step), "trainable": list(state.trainable), "params": params,
+                   "opt_state": opt, "ema_params": ema}
+    return {"train_state": train_state, "params": {n: ema.get(n, p) for n, p in params.items()}}
 
 
 def snapshot_to_host(tree):
@@ -272,10 +352,16 @@ class CheckpointManager:
         ``async_save`` from a host snapshot, on the writer thread."""
         t0 = time.monotonic()
         self.wait_until_finished()  # a write in flight blocks the caller too
+        sharded = getattr(state.model, "parallel", None) is not None
+        if sharded:
+            payload = _gathered_payload(state)  # whole tensors on rank 0's host
+            if payload is None:
+                return
         if not self.async_save:
-            self._save_blocking(step, _payload(state), assets or {}, t0, blocked_s=None)
+            self._save_blocking(step, payload if sharded else _payload(state), assets or {}, t0, blocked_s=None)
             return
-        payload = snapshot_to_host(_payload(state))
+        if not sharded:
+            payload = snapshot_to_host(_payload(state))
         blocked_s = time.monotonic() - t0
 
         def write():
@@ -367,12 +453,17 @@ class CheckpointManager:
         if set(opt) - {"count"} != set(buffers):
             raise ValueError(f"{path}: optimizer state {sorted(set(opt) - {'count'})} saved, this run's optimizer "
                              f"keeps {sorted(buffers)}: resume with the saved run's optimizer")
-        copy_tensors(state.params, saved["params"], "train state params")
+        if getattr(state.model, "parallel", None) is not None:
+            def copy(own, saved_tensors, what):
+                copy_shards(state.model, own, saved_tensors, what)
+        else:
+            copy = copy_tensors
+        copy(state.params, saved["params"], "train state params")
         for name, tensors in buffers.items():
-            copy_tensors(dict(zip(state.trainable, tensors, strict=True)), opt[name], f"optimizer {name}")
+            copy(dict(zip(state.trainable, tensors, strict=True)), opt[name], f"optimizer {name}")
         state.opt_state.count = int(opt["count"])
         if state.ema_params is not None:
-            copy_tensors(state.ema_params, saved["ema_params"], "EMA")
+            copy(state.ema_params, saved["ema_params"], "EMA")
         state.step = int(saved["step"])
         return state
 

@@ -14,9 +14,10 @@ tokens), ``pi0_replicated``, ``lap_gemma3_4b``, ``fast_gemma3_4b``,
 ``lap_cotrain``, ``lap_gemma3_4b_libero`` and ``debug``. With ``use_fast``
 the model transforms are the FAST group (``TokenizeFASTInputs`` in,
 ``ExtractFASTActions`` out), built as JAX builds it. The optimizer is
-``AdamW`` or ``SGDConfig`` (``--optimizer SGDConfig``). Left out: the RLDS
-pipeline's data fields (ROADMAP item 19), meshes and parallelism (item 13)
-and wandb (item 21). Every config but ``debug`` reads ``oxe`` or ``libero``,
+``AdamW`` or ``SGDConfig`` (``--optimizer SGDConfig``). The mesh fields
+``fsdp_devices``, ``tp_devices`` and ``sequence_parallel`` are JAX's
+(``:253-266``); left out: ``pp_devices``/``pp_microbatches`` (item 13b),
+the RLDS pipeline's data fields (ROADMAP item 19) and wandb (item 21). Every config but ``debug`` reads ``oxe`` or ``libero``,
 which the loader refuses until item 19; ``--data.repo_id fake`` trains any
 of them on synthetic batches. Defaults equal JAX's; a test compares them
 field by field.
@@ -251,8 +252,7 @@ class TrainConfig:
         default_factory=lambda: _optimizer.AdamW(weight_decay=0.0001)
     )
 
-    # The global batch; one process loads all of it (ROADMAP item 13 splits
-    # it over processes).
+    # The global batch; each data rank (dp x fsdp) loads its share.
     batch_size: int = 2048
     num_train_steps: int = 40_000
     save_interval: int = 1000
@@ -267,6 +267,15 @@ class TrainConfig:
         default_factory=lambda: _optimizer.EmaScheduleChoice(kind="cosine_delayed", start_step=5000)
     )
 
+    # The (dp, fsdp, tp) mesh under torchrun (``parallel.mesh``): fsdp *
+    # tp ranks hold one model, the remaining factor is data parallelism.
+    # ``pp_devices``/``pp_microbatches`` come with ROADMAP item 13b.
+    fsdp_devices: int = 1
+    tp_devices: int = 1
+    # Megatron-style sequence parallelism under tp: the residual stream stays
+    # token-sharded between the attention and MLP regions. Numerically the
+    # same as tp alone.
+    sequence_parallel: bool = False
     param_dtype: str = "float32"
 
     checkpoint_base_dir: str = "./checkpoints"
@@ -284,6 +293,10 @@ class TrainConfig:
     num_eval_batches: int | None = 500
     eval_use_ema: bool = True
     eval_split: Literal["val", "train"] = "val"
+
+    def __post_init__(self):
+        if self.fsdp_devices < 1 or self.tp_devices < 1:
+            raise ValueError("fsdp_devices and tp_devices must be >= 1")
 
     @property
     def assets_dirs(self) -> pathlib.Path:

@@ -87,6 +87,19 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(norms).to(torch.float32)
 
 
+def sum_of_squares(tensors, device) -> torch.Tensor:
+    """The sum of squares over a list of tensors (float64 on the CPU, as in
+    ``global_norm``; float32 from one fused launch on the card); a zero on
+    ``device`` for an empty list. A sharded model sums this over its ranks."""
+    tensors = list(tensors)
+    if not tensors:
+        return torch.zeros((), dtype=torch.float64 if torch.device(device).type == "cpu" else torch.float32,
+                           device=device)
+    if tensors[0].is_cuda:
+        return torch.stack([n.to(torch.float32) for n in torch._foreach_norm(tensors)]).square().sum()
+    return torch.stack([torch.linalg.vector_norm(t, dtype=torch.float64) for t in tensors]).square().sum()
+
+
 @dataclasses.dataclass
 class AdamWState:
     count: int

@@ -2,6 +2,22 @@
 
     python -m lap_tpu_torch.training.train <config> --exp_name X [--field value ...] [--device cpu]
     python -m lap_tpu_torch.training.train debug --device cpu   # tiny model, fake data
+    python -m torch.distributed.run --nproc_per_node N -m lap_tpu_torch.training.train <config> \
+        --exp_name X --fsdp_devices N                          # N ranks, one a card
+
+Under ``torchrun`` each process joins the process group (NCCL on CUDA, gloo
+with ``--device cpu``), builds the (dp, fsdp,
+tp) mesh from ``--fsdp_devices`` (``pick_fsdp_devices``) and
+``--tp_devices``, and shards the model before the first step
+(``parallel.sharding.parallelize_``; ``--sequence_parallel true`` under tp).
+A fresh run builds and initialises the whole model on each rank, merges the
+pretrained weights, then shards it; a resumed run builds it empty on the
+``meta`` device, shards it and restores each rank's slices. Each data rank
+loads its share of the global ``batch_size``; rank 0 logs and writes the
+checkpoints (the other ranks log warnings only), with every data rank's
+loader cursor (``dataloader_process_{i}``, gathered by
+``array_utils.gather_host_json``). A SIGTERM on any rank stops every rank
+after the same step.
 
 ``<config>`` is a named config and ``--a.b value`` overrides any field
 (``config.cli``). The loop, as JAX's:
@@ -9,8 +25,8 @@
 - ``initialize_checkpoint_dir`` on ``{checkpoint_base_dir}/{name}/{exp_name}``
   (overwrite wipes it, resume resumes from its latest step);
 - the trainer from the config's seed; unless resuming, the weight loader's
-  weights merged in, with the EMA re-seeded from the merged weights
-  (``:134-145``); when resuming, the model is built empty and the state and
+  weights merged in before the optimizer state and the EMA are made from
+  them (``:134-145``); when resuming, the model is built empty and the state and
   the loader's cursor are restored from the latest step (``:232-244``);
 - the optimizer of the config, ``AdamW`` or ``SGDConfig`` (``--optimizer
   SGDConfig`` picks it on the command line, ``--optimizer.momentum`` etc.
@@ -25,9 +41,9 @@
   code 0; otherwise it logs ``training complete at step N``.
 
 It runs on the card unless ``--device cpu`` is given. Metrics go to
-``logging`` (wandb and the metrics logger are ROADMAP item 21); one process
-(``gather_host_json`` is the identity until item 13); no profiler trace or
-batch visualisation. ``Trainer``, ``build_trainer`` and ``fake_train_batch``
+``logging`` (wandb and the metrics logger are ROADMAP item 21); no profiler
+trace or batch visualisation; no pipeline parallelism (item 13b).
+``Trainer``, ``build_trainer`` and ``fake_train_batch``
 (optimizer steps on one synthetic batch: prompt tokens ``arange``, a
 language-action span from token 8, random uint8 images, seeded actions) stay
 for ``chip_smoke.py``'s timed steps.
@@ -50,10 +66,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from lap_tpu_torch.device import resolve_device
+from lap_tpu_torch.device import process_placement, resolve_device
 from lap_tpu_torch.models.lap_model import LAP, LAPConfig, get_freeze_filter, get_vlm_freeze_filter
+from lap_tpu_torch.parallel import mesh as _mesh
+from lap_tpu_torch.parallel.sharding import parallelize_
 from lap_tpu_torch.training import checkpoints as _checkpoints
+from lap_tpu_torch.training.array_utils import gather_host_json
 from lap_tpu_torch.training.config import TrainConfig, cli
 from lap_tpu_torch.training.state import TrainState
 from lap_tpu_torch.training.train_step import StepFunctions, make_step_functions
@@ -146,14 +166,26 @@ class Trainer:
 
 
 def build_trainer(config: TrainConfig, *, device=None, param_dtype: str | None = None,
-                  init_weights: bool = True) -> Trainer:
+                  init_weights: bool = True, mesh=None, weights=None) -> Trainer:
     """The configured model from the config's seed (empty when not
     ``init_weights``: a restore fills it), on the card unless ``device`` says
-    otherwise, with its optimizer state and EMA."""
+    otherwise, with its optimizer state and EMA. ``weights`` (a weight
+    loader) are merged in before the state is made. With ``mesh`` the model
+    is sharded over it (a model that a restore fills is built on ``meta``
+    and sharded before any storage is allocated)."""
     device = resolve_device(device)
     dtype = getattr(torch, param_dtype or config.param_dtype)
-    model = config.model.create_module(device=device, init_seed=config.seed if init_weights else None,
-                                       param_dtype=dtype)
+    on_meta = mesh is not None and not init_weights
+    model = config.model.create_module(device="meta" if on_meta else device,
+                                       init_seed=config.seed if init_weights else None, param_dtype=dtype)
+    if weights is not None:
+        from lap_tpu_torch.training.weight_loaders import load_into
+
+        load_into(model, weights)
+    if mesh is not None:
+        parallelize_(model, mesh, sequence_parallel=config.sequence_parallel)
+        if on_meta:
+            model.to_empty(device=device)
     freeze = get_vlm_freeze_filter(config.model) if config.freeze_vlm else get_freeze_filter(config.model)
     steps = make_step_functions(
         model,
@@ -181,29 +213,13 @@ def train(config: TrainConfig, *, device=None, num_steps: int | None = None,
     return trainer.run(batch, num_steps)
 
 
-@torch.no_grad()
-def merge_pretrained(trainer: Trainer, loader) -> None:
-    """Merge a weight loader's weights into the model, and re-seed the EMA
-    (its trainable entries) from the merged weights."""
-    from lap_tpu_torch.training.weight_loaders import load_into
-
-    load_into(trainer.model, loader)
-    state = trainer.state
-    if state.ema_params is not None:
-        params = state.params
-        for name, ema in state.ema_params.items():
-            ema.copy_(params[name])
-
-
-def gather_host_json(payload) -> list:
-    """Every process's JSON payload; one process until ROADMAP item 13."""
-    return [payload]
-
-
 def _wait_for_saves(ckpt_mgr, timings: dict) -> None:
-    """Join the write in flight; its wait goes to ``timings["save_wait_s"]``."""
+    """Join the write in flight (every rank waits for rank 0's); the wait
+    goes to ``timings["save_wait_s"]``."""
     t0 = time.monotonic()
     ckpt_mgr.wait_until_finished()
+    if dist.is_initialized():
+        dist.barrier()
     timings["save_wait_s"] = time.monotonic() - t0
 
 
@@ -226,6 +242,42 @@ def _collect_assets(config: TrainConfig, loader) -> dict:
         for i, st in enumerate(gather_host_json(state_dict)):
             assets[f"dataloader_process_{i}/dataloader_state.json"] = st
     return assets
+
+
+def _mesh_for(config: TrainConfig, device: torch.device):
+    """The run's mesh: built over the process group when there is one (a
+    run of one rank too), None for a plain single process."""
+    if not dist.is_initialized():
+        if config.fsdp_devices > 1 or config.tp_devices > 1:
+            raise ValueError("fsdp_devices / tp_devices > 1 need one process a card: launch under torchrun "
+                             "(python -m torch.distributed.run --nproc_per_node N -m lap_tpu_torch.training.train)")
+        return None
+    fsdp = _mesh.pick_fsdp_devices(config.fsdp_devices, dist.get_world_size() // config.tp_devices)
+    return _mesh.make_mesh(fsdp, config.tp_devices, device_type=device.type)
+
+
+def _open_checkpoints(config: TrainConfig, mesh):
+    """``initialize_checkpoint_dir`` on rank 0 first (it may wipe the
+    directory), then on the other ranks."""
+    kw = dict(keep_period=config.keep_period, overwrite=config.overwrite, resume=config.resume)
+    if mesh is None:
+        return _checkpoints.initialize_checkpoint_dir(config.checkpoint_dir, **kw)
+    out = None
+    if dist.get_rank() == 0:
+        out = _checkpoints.initialize_checkpoint_dir(config.checkpoint_dir, **kw)
+    dist.barrier()
+    if out is None:
+        out = _checkpoints.initialize_checkpoint_dir(config.checkpoint_dir, **{**kw, "overwrite": False})
+    return out
+
+
+def _any_rank(flag: bool, mesh) -> bool:
+    """Whether ``flag`` is set on any rank (the flag itself without a mesh)."""
+    if mesh is None:
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=_mesh.coordinate_device(mesh))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
 
 
 @dataclasses.dataclass
@@ -257,29 +309,32 @@ def run(config: TrainConfig, *, device=None) -> RunResult:
     from lap_tpu_torch.data.loader import create_data_loader
 
     device = resolve_device(device)
-    ckpt_mgr, resuming = _checkpoints.initialize_checkpoint_dir(
-        config.checkpoint_dir, keep_period=config.keep_period, overwrite=config.overwrite, resume=config.resume
-    )
-    trainer = build_trainer(config, device=device, init_weights=not resuming)
+    mesh = _mesh_for(config, device)
+    ckpt_mgr, resuming = _open_checkpoints(config, mesh)
+    weights = None if resuming else config.weight_loader.build()
+    trainer = build_trainer(config, device=device, init_weights=not resuming, mesh=mesh, weights=weights)
+    if weights is not None:
+        logger.info("merged pretrained weights from %s", config.weight_loader)
     n_params = sum(p.numel() for p in trainer.model.parameters())
     logger.info("training %s/%s: %d params (%s), %d trainable tensors, EMA %s, batch %d on %s",
                 config.name, config.exp_name, n_params, config.param_dtype, len(trainer.state.trainable),
                 "on" if trainer.state.ema_params is not None else "off", config.batch_size, device)
+    if mesh is not None:
+        plan = trainer.model.parallel.plan
+        logger.info("sharded over %s: %.1f MiB of parameters a rank (JAX's placement: %d sharded, %d replicated)",
+                    plan.mesh_shape, plan.per_rank_bytes / 2**20, plan.num_sharded, plan.num_replicated)
     timings = {}
     if resuming:
         t0 = time.monotonic()
         ckpt_mgr.restore(None, trainer.state)
         timings["restore_s"] = time.monotonic() - t0
         logger.info("resumed from step %d (restored in %.2f s)", trainer.state.step, timings["restore_s"])
-    else:
-        weights = config.weight_loader.build()
-        if weights is not None:
-            merge_pretrained(trainer, weights)
-            logger.info("merged pretrained weights from %s", config.weight_loader)
 
     loader = create_data_loader(config, device=device, split="train")
     if resuming:
-        saved = ckpt_mgr.load_assets(trainer.state.step, LOADER_STATE)
+        index, _ = process_placement()
+        saved = (ckpt_mgr.load_assets(trainer.state.step, f"dataloader_process_{index}/dataloader_state.json")
+                 or ckpt_mgr.load_assets(trainer.state.step, LOADER_STATE))
         if saved:
             loader.load_state_dict(saved)
             logger.info("restored dataloader state: %s", saved)
@@ -322,10 +377,11 @@ def run(config: TrainConfig, *, device=None) -> RunResult:
                     logger.info("step %d val %s", step + 1, _format(val_metrics))
                 except StopIteration:
                     val_iter = iter(val_loader)
-            if (step + 1) % config.save_interval == 0 or step + 1 == config.num_train_steps or preempted.is_set():
+            stop = _any_rank(preempted.is_set(), mesh)
+            if (step + 1) % config.save_interval == 0 or step + 1 == config.num_train_steps or stop:
                 ckpt_mgr.save(step + 1, trainer.state, assets=_collect_assets(config, loader))
                 _log_finished_save(ckpt_mgr, reported)
-            if preempted.is_set():
+            if stop:
                 _wait_for_saves(ckpt_mgr, timings)
                 _log_finished_save(ckpt_mgr, reported)
                 logger.warning("exiting after preemption checkpoint at step %d", step + 1)
@@ -356,11 +412,17 @@ def split_device(argv: list[str]) -> tuple[str | None, list[str]]:
 
 
 def main(argv: list[str] | None = None) -> RunResult:
+    """``--device`` comes out first; under ``torchrun`` the process group is
+    joined with the backend that device takes (``init_distributed``)."""
     device, rest = split_device(sys.argv[1:] if argv is None else argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname).1s %(name)s: %(message)s",
-                        datefmt="%H:%M:%S")
-    return run(cli(rest), device=device)
+    config = cli(rest)
+    rank, _ = _mesh.init_distributed(device=device)
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
+                        format="%(asctime)s %(levelname).1s %(name)s: %(message)s", datefmt="%H:%M:%S")
+    return run(config, device=device)
 
 
 if __name__ == "__main__":
     main().close()
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -68,6 +68,10 @@ FWD_CASES = [
     ("group1_h128", (1, 300, 141, 8, 8, 128)),
     ("ragged_b3", (3, 517, 700, 16, 2, 256)),
     ("gemma3_ar_prefill_group2", (1, 800, 864, 8, 4, 256)),
+    # One rank's heads under tensor parallelism at tp = 2: LAP-3B's prefill
+    # (4 query heads on its 1 KV head) and LAPGemma3-4B's (4 on 2).
+    ("tp2_prefill_group4", (1, 692, 692, 4, 1, 256)),
+    ("tp2_gemma3_prefill_group2", (1, 800, 800, 4, 2, 256)),
 ]
 
 
@@ -184,6 +188,7 @@ BWD_CASES = [
     (2, 816, 816, 8, 4, 256),  # the LAPGemma3-4B training call's shape: GQA group 2
     (2, 130, 77, 8, 2, 256),
     (1, 65, 200, 8, 2, 128),  # GQA group 4
+    (2, 692, 708, 4, 1, 256),  # one rank's LAP-3B training call under tp = 2: group 4
 ]
 
 
@@ -297,15 +302,16 @@ def test_flash_backward_grouped_ragged_edges(cuda, n, kh):
         assert dk[:, cols].abs().max().item() == 0.0 and dv[:, cols].abs().max().item() == 0.0
 
 
-@pytest.mark.parametrize("case", ["training_step", "gqa_group4_h128"])
+@pytest.mark.parametrize("case", ["training_step", "gqa_group4_h128", "tp2_training_step"])
 def test_flash_backward_gives_the_same_bits_twice(cuda, case):
     """No atomics: two calls on the same inputs give the same bits, at the
-    training call's shape and strides (group 8) and at group 4, H = 128."""
+    training call's shape and strides (group 8; group 4 for one rank's heads
+    under tp = 2) and at group 4, H = 128."""
     from lap_tpu_torch.ops import flash_attention as fa
 
-    if case == "training_step":
+    if case in ("training_step", "tp2_training_step"):
         b, t, s = 8, 692, 708
-        q, k, v, dout, mask = _bwd_inputs(cuda, b, s, s, 8, 1, 256)
+        q, k, v, dout, mask = _bwd_inputs(cuda, b, s, s, 8 if case == "training_step" else 4, 1, 256)
         q, dout, mask = q[:, :t], dout[:, :t], mask[:, :t]
     else:
         q, k, v, dout, mask = _bwd_inputs(cuda, 2, 300, 270, 8, 2, 128)

@@ -27,6 +27,7 @@ FAST_MODULES = ("models.bpe", "models.fast_tokenizer")
 DATA_MODULES = tuple(f"data.{m}" for m in (
     "tfrecord", "rlds", "rotation", "transform_helpers", "registry", "transforms_oxe", "mixtures", "norm_stats",
     "episode_pipeline", "bbox", "grounding", "vqa", "droid", "mixer"))
+PARALLEL_MODULES = ("parallel", "parallel.mesh", "parallel.sharding", "parallel.tp", "training.array_utils")
 JAX_LIBS = ("jax", "jaxlib", "flax", "optax", "orbax")
 
 
@@ -45,7 +46,7 @@ def test_port_imports_with_jax_blocked():
     mods = proc.stdout.split()
     assert len(mods) >= 12 + len(TRAINING_MODULES)
     assert {f"lap_tpu_torch.{m}" for m in QUANT_SERVING_MODULES + SERVING_STACK_MODULES + ENTRY_POINT_MODULES
-            + GEMMA3_MODULES + FAST_MODULES + DATA_MODULES} <= set(mods)
+            + GEMMA3_MODULES + FAST_MODULES + DATA_MODULES + PARALLEL_MODULES} <= set(mods)
 
 
 def test_the_data_path_imports_no_image_library():
@@ -189,3 +190,20 @@ def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path):
         )
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+PARALLEL_FILES = sorted((REPO / "lap_tpu_torch" / "parallel").glob("*.py")) + [
+    REPO / "lap_tpu_torch" / "training" / "array_utils.py"]
+
+
+@pytest.mark.parametrize("path", PARALLEL_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_parallel_modules_are_scanned_and_call_no_library_kernel(path):
+    """The parallelism modules stand alone (scanned for JAX and lap_tpu
+    imports above) and compute with no library kernel: collectives and
+    FSDP2's sharding only, no attention or GEMM library, no compiled
+    replacement of the hand-written kernels."""
+    assert path in PORT_FILES
+    text = path.read_text()
+    for banned in (r"scaled_dot_product_attention\(", r"torch\.compile\(", r"import\s+(flash_attn|triton)\b",
+                   r"(Colwise|Rowwise)Parallel\(", r"parallelize_module\(", r"torch\.(matmul|bmm)\("):
+        assert not re.search(banned, text), banned

@@ -175,3 +175,41 @@ def test_entry_point_raises_without_cuda_unless_the_cpu_is_asked_for(monkeypatch
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_policy.create_policy(serve_policy.parse_args(["--env", "DEBUG"]))
     assert isinstance(serve_policy.create_policy(_args("--env", "DEBUG")), Policy)
+
+
+def test_serve_policy_module_serves_tensor_parallel_over_two_ranks(ckpt):
+    """``--serve_tp 2``: the command starts its two ranks (gloo with
+    ``--device cpu``), each restores its slices of the checkpoint, rank 0
+    serves on the websocket and rank 1 follows its model calls."""
+    from lap_tpu_torch.serving.websocket_client_policy import WebsocketClientPolicy
+
+    port = _free_port()
+    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "lap_tpu_torch.serving.serve_policy", "--env", "LAP", "--config", "debug",
+         "--checkpoint_dir", str(ckpt), "--allow_test_vocab", "--device", "cpu", "--serve_tp", "2",
+         "--host", "127.0.0.1", "--port", str(port)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True,  # the ranks are its children: one signal stops them all
+    )
+    try:
+        deadline = time.time() + 120
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"server died:\n{proc.stdout.read()[-3000:]}")
+            try:
+                client = WebsocketClientPolicy(host="127.0.0.1", port=port)
+                break
+            except OSError:
+                if time.time() > deadline:
+                    raise
+                time.sleep(0.5)
+        assert client.get_server_metadata()["config"] == "debug"
+        for _ in range(2):
+            result = client.infer(_obs())
+            assert result["actions"].shape == (4, 7) and np.isfinite(result["actions"]).all()
+        client.close()
+    finally:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=30)
+    assert "following rank 0's model calls" in proc.stdout.read()

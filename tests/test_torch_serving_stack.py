@@ -207,7 +207,8 @@ def test_tokenizer_guard_refuses_before_any_restore(tmp_path):
 
 def test_refusals_of_what_is_not_ported(setup):
     cfg = config.get_config(CONFIG)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # Tensor-parallel serving runs inside a process group of tp ranks; outside one it refuses.
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         policy_config.create_trained_policy(cfg, setup["ckpt"], device="cpu", allow_test_vocab=True, tp=2)
     with pytest.raises(ValueError, match="single-card"):
         policy_config.create_trained_policy_ar(cfg, setup["ckpt"], device="cpu", allow_test_vocab=True, tp=2,
